@@ -1,0 +1,392 @@
+// Fused state step for Hopper (sm_90a): one thread per env.
+//
+// Replaces the Pallas TPU kernel dtown/ops/state_kernel.py::
+// make_state_kernel (launched by state_step_pallas). The plain version is
+// dtown_torch/ops/state_kernel.py::state_step_reference; this file keeps
+// its float32 operation order step for step.
+//
+// What bounds it on the card: memory. Per env the step reads and writes
+// one blob column (NF=32 floats each way) plus two actions, and does a few
+// thousand scalar operations; at 4096 envs that is ~1 MB of traffic and a
+// few hundred thousand threads' worth of arithmetic, so launch latency and
+// the latency of the dependent table loads dominate, not bandwidth.
+//
+// Design:
+//  * The field-major blob [NF, B] is kept: thread e reads blob[f*B + e],
+//    so a warp's loads and stores of one field are coalesced.
+//  * The TPU kernel's `table_T @ onehot_T` matmul gathers become indexed
+//    loads through the read-only path (__ldg): the curve table of the tile
+//    under the query point (184 x T floats), the object table (24 x M),
+//    the spawn bank (8 x 512) and the packed tile words. They are small
+//    (18 KB for loop_obstacles' curve table) and stay in L1/L2.
+//  * 128 threads a block, so 4096 envs fill 32 blocks (the TPU kernel's
+//    512-env programs would leave most of the 132 SMs idle).
+//  * The integer hash computes +, << and ^ in uint32_t (defined
+//    wraparound) and each >> as an arithmetic shift of the int32 value,
+//    which is the reference's int32 semantics.
+//  * Built with -fmad=false and without fast math (_build.py): each op rounds
+//    once, as in the plain version, so the discrete rows (done, collision,
+//    in-lane, step, rng) agree exactly and the pose rows to the bit.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "sincos.cuh"
+
+namespace {
+
+// blob rows (dtown_torch/ops/state_kernel.py F_*)
+constexpr int F_POS_X = 0, F_POS_Y = 1, F_POS_Z = 2, F_ANGLE = 3;
+constexpr int F_SPEED = 4, F_WVL = 5, F_WVR = 6, F_STEP = 7, F_RNG = 8;
+constexpr int F_ROBOT_SPEED = 9, F_WHEEL_DIST = 10, F_ACT0 = 11;
+constexpr int F_ACT1 = 12, F_REWARD = 13, F_DONE = 14, F_LDIST = 15;
+constexpr int F_LDOT = 16, F_LDEG = 17, F_INLANE = 18, F_COLL = 19;
+constexpr int F_TIME = 20, F_ENVID = 21, F_OLDIST = 22, F_OLDOT = 23;
+constexpr int F_OLDEG = 24, F_OINLANE = 25, F_MAPID = 26, N_OUT = 27;
+
+// curve table rows
+constexpr int N_CURVES = 12, CT_CPS = 0, CT_CHX = 144, CT_CHZ = 156;
+constexpr int CT_VALID = 168;
+// object table rows
+constexpr int OT_CX = 0, OT_NX = 8, OT_PX = 12, OT_PZ = 13, OT_RAD = 14;
+constexpr int OT_ACT = 15, OT_DYN = 16;
+// spawn bank rows
+constexpr int BK_X = 0, BK_Y = 1, BK_Z = 2, BK_ANG = 3, BK_LDIST = 4;
+constexpr int BK_LDOT = 5, BK_LDEG = 6, BK_INLANE = 7, BANK_K = 512;
+// scalar parameters (state_kernel.py _PARAM_NAMES)
+constexpr int P_DT = 0, P_INV_DT = 1, P_KR = 2, P_KL = 3, P_RADIUS = 4;
+constexpr int P_LIMIT = 5, P_MAX_STEPS = 6, P_CAM_BACK = 7, P_HW = 8;
+constexpr int P_HL = 9, P_TS_INV = 10, P_AGENT_RAD = 11;
+
+constexpr int BEZIER_ITERS = 8;
+constexpr int THREADS = 128;
+constexpr int SALT_SPAWN = 0x20000000;
+
+struct Tables {
+  const int* words;
+  const float* ct;
+  const float* ot;
+  const float* bank;
+  int n_tiles, Hg, Wg, M;
+  float ts_inv;
+};
+
+__device__ __forceinline__ int32_t asr(uint32_t h, int k) {
+  return static_cast<int32_t>(h) >> k;  // arithmetic shift of the int32
+}
+
+__device__ __forceinline__ int32_t hash_u32(int32_t a, int32_t b,
+                                            int32_t salt) {
+  uint32_t h = (static_cast<uint32_t>(a) ^ (static_cast<uint32_t>(b) << 13))
+               + static_cast<uint32_t>(b) + static_cast<uint32_t>(salt);
+  h = h + (h << 10);
+  h = h ^ static_cast<uint32_t>(asr(h, 6));
+  h = h + (h << 3);
+  h = h ^ static_cast<uint32_t>(asr(h, 11));
+  h = h + (h << 15);
+  h = h ^ static_cast<uint32_t>(asr(h, 7));
+  return static_cast<int32_t>(h & 0x7FFFFFFFu);
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// Drivability of the tile under (px, pz); also returns the clipped tile id.
+__device__ __forceinline__ bool drivable_at(const Tables& t, float px,
+                                            float pz, int* tid_out) {
+  const float fi = floorf(px * t.ts_inv);
+  const float fj = floorf(pz * t.ts_inv);
+  const bool ing = (fi >= 0.0f) & (fi < static_cast<float>(t.Wg))
+                   & (fj >= 0.0f) & (fj < static_cast<float>(t.Hg));
+  const int ii = min(max(static_cast<int>(fi), 0), t.Wg - 1);
+  const int jj = min(max(static_cast<int>(fj), 0), t.Hg - 1);
+  const int tid = jj * t.Wg + ii;
+  const int word = __ldg(t.words + (tid >> 2));
+  const int kind = (word >> ((tid & 3) * 8)) & 0xF;
+  *tid_out = tid;
+  return ing & (kind >= 1) & (kind <= 6);  // TILE_STRAIGHT..TILE_4WAY
+}
+
+struct Bez {
+  float x0, z0, x1, z1, x2, z2, x3, z3;
+  __device__ __forceinline__ void point(float t, float* x, float* z) const {
+    const float u = 1.0f - t;
+    const float w0 = u * u * u;
+    const float w1 = 3.0f * t * u * u;
+    const float w2 = 3.0f * t * t * u;
+    const float w3 = t * t * t;
+    *x = w0 * x0 + w1 * x1 + w2 * x2 + w3 * x3;
+    *z = w0 * z0 + w1 * z1 + w2 * z2 + w3 * z3;
+  }
+};
+
+// closest_curve_point on the tile's curve package: chord-dot curve select,
+// fixed-depth bisection; returns point, unit tangent, best chord dot.
+__device__ void lane_query(const Tables& t, int tid, float qx, float qz,
+                           float qdx, float qdz, float* px_c, float* pz_c,
+                           float* tanx_o, float* tanz_o, float* best_o) {
+  const float* col = t.ct + tid;
+  const int T = t.n_tiles;
+  float best_dot = -1e30f;
+  float cps[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int c = 0; c < N_CURVES; ++c) {
+    float dot = __ldg(col + (CT_CHX + c) * T) * qdx
+                + __ldg(col + (CT_CHZ + c) * T) * qdz;
+    if (!(__ldg(col + (CT_VALID + c) * T) > 0.5f)) dot = -1e30f;
+    if (dot > best_dot) {
+      best_dot = dot;
+      for (int k = 0; k < 8; ++k)
+        cps[k] = __ldg(col + (CT_CPS + c * 12 + k) * T);
+    }
+  }
+  const Bez b{cps[0], cps[1], cps[2], cps[3], cps[4], cps[5], cps[6],
+              cps[7]};
+  float t_bot = 0.0f, t_top = 1.0f;
+  for (int it = 0; it < BEZIER_ITERS; ++it) {
+    const float mid = 0.5f * (t_bot + t_top);
+    float bx, bz, tx, tz;
+    b.point(t_bot, &bx, &bz);
+    b.point(t_top, &tx, &tz);
+    const float ebx = bx - qx, ebz = bz - qz;
+    const float etx = tx - qx, etz = tz - qz;
+    const bool keep_bot = (ebx * ebx + ebz * ebz) < (etx * etx + etz * etz);
+    const float nb = keep_bot ? t_bot : mid;
+    const float nt = keep_bot ? mid : t_top;
+    t_bot = nb;
+    t_top = nt;
+  }
+  const float ts = 0.5f * (t_bot + t_top);
+  b.point(ts, px_c, pz_c);
+  const float u = 1.0f - ts;
+  const float tanx = 3.0f * u * u * (b.x1 - b.x0)
+                     + 6.0f * u * ts * (b.x2 - b.x1)
+                     + 3.0f * ts * ts * (b.x3 - b.x2);
+  const float tanz = 3.0f * u * u * (b.z1 - b.z0)
+                     + 6.0f * u * ts * (b.z2 - b.z1)
+                     + 3.0f * ts * ts * (b.z3 - b.z2);
+  const float tinv = 1.0f / sqrtf(fmaxf(tanx * tanx + tanz * tanz, 1e-24f));
+  *tanx_o = tanx * tinv;
+  *tanz_o = tanz * tinv;
+  *best_o = best_dot;
+}
+
+__global__ void __launch_bounds__(THREADS)
+state_step_kernel(const float* __restrict__ blob,
+                  const float* __restrict__ act, float* __restrict__ out,
+                  Tables t, const float* __restrict__ prm, int B, int nf,
+                  int n_ok, int frame_skip, int use_wm, int auto_reset) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= B) return;
+  t.ts_inv = __ldg(prm + P_TS_INV);
+  const float dt = __ldg(prm + P_DT);
+  const float hw = __ldg(prm + P_HW);
+  const float hl = __ldg(prm + P_HL);
+  auto row = [&](int f) { return blob[f * B + e]; };
+
+  float pos_x = row(F_POS_X), pos_y = row(F_POS_Y), pos_z = row(F_POS_Z);
+  float angle = row(F_ANGLE);
+  const float act0 = act[2 * e], act1 = act[2 * e + 1];
+  const float robot_speed = row(F_ROBOT_SPEED);
+  const float wheel_dist = row(F_WHEEL_DIST);
+  float step_cnt = row(F_STEP);
+  const float rng_ctr = row(F_RNG);
+  const float env_id = row(F_ENVID);
+  const float map_row = row(F_MAPID);
+
+  // ---- wheel model ----------------------------------------------------
+  float u_l, u_r;
+  if (use_wm) {
+    const float radius = __ldg(prm + P_RADIUS);
+    const float limit = __ldg(prm + P_LIMIT);
+    const float omega_r = (act0 + 0.5f * act1 * wheel_dist) / radius;
+    const float omega_l = (act0 - 0.5f * act1 * wheel_dist) / radius;
+    u_r = clampf(omega_r * __ldg(prm + P_KR), -limit, limit);
+    u_l = clampf(omega_l * __ldg(prm + P_KL), -limit, limit);
+  } else {
+    u_l = act0;
+    u_r = act1;
+  }
+  u_l = clampf(u_l, -1.0f, 1.0f);
+  u_r = clampf(u_r, -1.0f, 1.0f);
+  float vl = u_l * robot_speed;
+  float vr = u_r * robot_speed;
+
+  // ---- differential-drive integration ----------------------------------
+  float speed = 0.0f;
+  for (int fs = 0; fs < frame_skip; ++fs) {
+    float s_a, c_a;
+    dt_sincos(angle, &s_a, &c_a);
+    const float dir_x = c_a, dir_z = -s_a;
+    const bool straight = vl == vr;
+    const float npx_s = pos_x + dt * vl * dir_x;
+    const float npz_s = pos_z + dt * vl * dir_z;
+    const float denom = straight ? 1.0f : vl - vr;
+    const float w = (vr - vl) / wheel_dist;
+    const float r_icc = wheel_dist * (vl + vr) / (2.0f * denom);
+    const float rot = w * dt;
+    const float cx = pos_x + r_icc * s_a;
+    const float cz = pos_z + r_icc * c_a;
+    float s_r, c_r;
+    dt_sincos(rot, &s_r, &c_r);
+    const float dx = pos_x - cx;
+    const float dz = pos_z - cz;
+    const float npx_a = cx + dx * c_r + dz * s_r;
+    const float npz_a = cz + dz * c_r - dx * s_r;
+    const float new_x = straight ? npx_s : npx_a;
+    const float new_z = straight ? npz_s : npz_a;
+    const float new_angle = angle + (straight ? 0.0f : rot);
+    const float ddx = new_x - pos_x;
+    const float ddz = new_z - pos_z;
+    speed = sqrtf(ddx * ddx + ddz * ddz) * __ldg(prm + P_INV_DT);
+    pos_x = new_x;
+    pos_z = new_z;
+    angle = new_angle;
+  }
+  step_cnt = step_cnt + static_cast<float>(frame_skip);
+
+  float s_a, c_a;
+  dt_sincos(angle, &s_a, &c_a);
+  const float dir_x = c_a, dir_z = -s_a;
+  const float right_x = s_a, right_z = c_a;
+
+  // ---- drivability ------------------------------------------------------
+  const float cam_back = __ldg(prm + P_CAM_BACK);
+  const float acx = pos_x + cam_back * dir_x;
+  const float acz = pos_z + cam_back * dir_z;
+  int tid_pos, tid_tmp;
+  const bool d_c = drivable_at(t, pos_x, pos_z, &tid_pos);
+  const bool d_c2 = drivable_at(t, acx, acz, &tid_tmp);
+  const bool d_l = drivable_at(t, acx - hw * right_x, acz - hw * right_z,
+                               &tid_tmp);
+  const bool d_r = drivable_at(t, acx + hw * right_x, acz + hw * right_z,
+                               &tid_tmp);
+  const bool d_f = drivable_at(t, acx + hl * dir_x, acz + hl * dir_z,
+                               &tid_tmp);
+  const bool all_driv = d_c2 & d_l & d_r & d_f;
+
+  // ---- SAT collision + proximity ----------------------------------------
+  bool collided = false;
+  float prox_static = 1e30f;
+  float prox_dyn = 0.0f;
+  if (t.M > 0) {
+    float agx[4], agz[4];
+    const float sfs[4] = {-hl, hl, hl, -hl};
+    const float srs[4] = {hw, hw, -hw, -hw};
+    for (int i = 0; i < 4; ++i) {
+      agx[i] = acx + sfs[i] * dir_x + srs[i] * right_x;
+      agz[i] = acz + sfs[i] * dir_z + srs[i] * right_z;
+    }
+    const float agent_rad = __ldg(prm + P_AGENT_RAD);
+    for (int m = 0; m < t.M; ++m) {
+      auto O = [&](int r) { return __ldg(t.ot + r * t.M + m); };
+      const float axs[4] = {dir_x, right_x, O(OT_NX + 0), O(OT_NX + 2)};
+      const float azs[4] = {dir_z, right_z, O(OT_NX + 1), O(OT_NX + 3)};
+      bool separated = false;
+      for (int a = 0; a < 4; ++a) {
+        const float ax = axs[a], az = azs[a];
+        float amin = 0.f, amax = 0.f, bmin = 0.f, bmax = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const float pa = agx[i] * ax + agz[i] * az;
+          amin = i == 0 ? pa : fminf(amin, pa);
+          amax = i == 0 ? pa : fmaxf(amax, pa);
+          const float pb = O(OT_CX + 2 * i) * ax + O(OT_CX + 2 * i + 1) * az;
+          bmin = i == 0 ? pb : fminf(bmin, pb);
+          bmax = i == 0 ? pb : fmaxf(bmax, pb);
+        }
+        separated = separated | (amax < bmin) | (bmax < amin);
+      }
+      const bool o_act = O(OT_ACT) > 0.5f;
+      const bool o_dyn = O(OT_DYN) > 0.5f;
+      collided = collided | (!separated & o_act);
+      const float dxo = O(OT_PX) - acx;
+      const float dzo = O(OT_PZ) - acz;
+      const float dist_o = sqrtf(dxo * dxo + dzo * dzo);
+      const float score = dist_o - agent_rad - O(OT_RAD);
+      if (o_act & !o_dyn) prox_static = fminf(prox_static, score);
+      if (o_act & o_dyn) prox_dyn = prox_dyn + fminf(score, 0.0f);
+    }
+  }
+  const float col_penalty = fminf(prox_static, 0.0f) + prox_dyn;
+  const bool valid = all_driv & !collided;
+
+  // ---- lane position ------------------------------------------------------
+  float px_c, pz_c, tanx, tanz, best_dot;
+  lane_query(t, tid_pos, pos_x, pos_z, dir_x, dir_z, &px_c, &pz_c, &tanx,
+             &tanz, &best_dot);
+  const float dot_dir = clampf(dir_x * tanx + dir_z * tanz, -1.0f, 1.0f);
+  const float rox = -tanz;
+  const float roz = tanx;
+  const float signed_dist = (pos_x - px_c) * rox + (pos_z - pz_c) * roz;
+  float ang_rad = dt_acos(dot_dir);
+  if (dir_x * rox + dir_z * roz < 0.0f) ang_rad = -ang_rad;
+  const bool in_lane = d_c & (best_dot > 0.0f);
+
+  // ---- reward / done ------------------------------------------------------
+  const float reward_full = 1.0f * speed * dot_dir
+                            + -10.0f * fabsf(signed_dist)
+                            + 40.0f * col_penalty;
+  const float reward_alive = in_lane ? reward_full : 40.0f * col_penalty;
+  const bool crashed = !valid;
+  const bool truncated = step_cnt >= __ldg(prm + P_MAX_STEPS);
+  const bool done = crashed | truncated;
+  const float reward = crashed ? -1000.0f : reward_alive;
+
+  // ---- auto-reset from the spawn bank --------------------------------------
+  const float lane_deg = ang_rad * DT_F(180.0 / 3.14159265358979323846);
+  const float in_lane_f = in_lane ? 1.0f : 0.0f;
+  float o_ldist = signed_dist, o_ldot = dot_dir, o_ldeg = lane_deg;
+  float o_inlane = in_lane_f;
+  if (auto_reset && done) {
+    const int32_t h = hash_u32(static_cast<int32_t>(rng_ctr),
+                               static_cast<int32_t>(env_id), SALT_SPAWN);
+    const int sidx = h % max(n_ok, 1);
+    auto S = [&](int r) { return __ldg(t.bank + r * BANK_K + sidx); };
+    pos_x = S(BK_X);
+    pos_y = S(BK_Y);
+    pos_z = S(BK_Z);
+    angle = S(BK_ANG);
+    speed = 0.0f;
+    vl = 0.0f;
+    vr = 0.0f;
+    step_cnt = 0.0f;
+    o_ldist = S(BK_LDIST);
+    o_ldot = S(BK_LDOT);
+    o_ldeg = S(BK_LDEG);
+    o_inlane = S(BK_INLANE);
+  }
+
+  const float rows[N_OUT] = {
+      pos_x, pos_y, pos_z, angle, speed, vl, vr, step_cnt, rng_ctr + 1.0f,
+      robot_speed, wheel_dist, act0, act1, reward, done ? 1.0f : 0.0f,
+      signed_dist, dot_dir, lane_deg, in_lane_f, collided ? 1.0f : 0.0f,
+      step_cnt * dt, env_id, o_ldist, o_ldot, o_ldeg, o_inlane, map_row};
+#pragma unroll
+  for (int f = 0; f < N_OUT; ++f) out[f * B + e] = rows[f];
+  for (int f = N_OUT; f < nf; ++f) out[f * B + e] = 0.0f;
+}
+
+}  // namespace
+
+extern "C" int dtown_state_step(const float* blob, const float* act,
+                                float* out, const int* words,
+                                const float* ct, const float* ot,
+                                const float* bank, const float* prm, int B,
+                                int nf, int n_tiles, int Hg, int Wg, int M,
+                                int n_ok, int frame_skip, int use_wm,
+                                int auto_reset, void* stream) {
+  Tables t;
+  t.words = words;
+  t.ct = ct;
+  t.ot = ot;
+  t.bank = bank;
+  t.n_tiles = n_tiles;
+  t.Hg = Hg;
+  t.Wg = Wg;
+  t.M = M;
+  t.ts_inv = 0.0f;  // read from prm inside the kernel
+  const int blocks = (B + THREADS - 1) / THREADS;
+  state_step_kernel<<<blocks, THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      blob, act, out, t, prm, B, nf, n_ok, frame_skip, use_wm, auto_reset);
+  return static_cast<int>(cudaGetLastError());
+}

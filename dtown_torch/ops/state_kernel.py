@@ -1,0 +1,615 @@
+"""The fused state step: blob layout, kernel tables, plain version, wrapper.
+
+Counterpart of dtown/ops/state_kernel.py. One step advances every env
+through the whole non-render step: wheel model -> differential-drive
+integration -> drivability -> SAT collision and safety-circle penalty ->
+lane geometry (chord-dot curve select + fixed-depth bezier bisection) ->
+reward/done -> post-reset observation lane rows -> auto-reset from the
+spawn bank, drawn with an integer hash of the blob's counters.
+
+The env state is a float32 blob ``[NF, B]`` (fields x envs). On a CUDA
+tensor ``state_step`` launches the hand-written kernel
+(csrc/state_kernel.cu); on a CPU tensor it runs ``state_step_reference``,
+the plain torch version with the same float32 operation order.
+
+Scope of this slice: a static single map (no moving NPCs, no domain
+randomization, no Nav task, no map stacks); those raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from dtown_torch import constants as C
+from dtown_torch import types as T
+from dtown_torch.geometry import sincos
+
+# ---- blob field indices (f32 [F, B]) ---------------------------------
+F_POS_X, F_POS_Y, F_POS_Z, F_ANGLE, F_SPEED = 0, 1, 2, 3, 4
+F_WVL, F_WVR, F_STEP, F_RNG, F_ROBOT_SPEED, F_WHEEL_DIST = 5, 6, 7, 8, 9, 10
+F_ACT0, F_ACT1 = 11, 12
+F_REWARD, F_DONE, F_LDIST, F_LDOT, F_LDEG, F_INLANE, F_COLL, F_TIME = (
+    13, 14, 15, 16, 17, 18, 19, 20)
+F_ENVID = 21
+# observation-side lane rows: the fresh spawn's on a done step
+F_OLDIST, F_OLDOT, F_OLDEG, F_OINLANE = 22, 23, 24, 25
+F_MAPID = 26
+F_NPC_BASE = 27
+NPC_ROWS = 5
+NF = 32  # no-NPC, no-DR layout
+
+DR_ROWS = 16
+(DR_FOV, DR_CAMH, DR_CAMA, DR_CAMF, DR_LX, DR_LY, DR_LZ, DR_AMB,
+ DR_GR, DR_GG, DR_GB, DR_HR, DR_HG, DR_HB, DR_TEXSEED, DR_OBJVIS) = range(16)
+
+NAV_ROWS = 2
+NAV_GI, NAV_GJ = 0, 1
+
+
+def dr_base(n_npc: int) -> int:
+    return F_NPC_BASE + NPC_ROWS * n_npc
+
+
+def nav_base(n_npc: int, domain_rand: bool = False) -> int:
+    return dr_base(n_npc) + (DR_ROWS if domain_rand else 0)
+
+
+def nf_for(n_npc: int, domain_rand: bool = False, nav: bool = False) -> int:
+    """Blob row count for a map with n_npc moving NPCs."""
+    rows = nav_base(n_npc, domain_rand) + (NAV_ROWS if nav else 0)
+    return max(NF, -(-rows // 8) * 8)
+
+
+def moving_npcs(maps):
+    """Static descriptors of a single map's moving NPCs (walking duckies
+    and scripted duckiebots; traffic lights stay static), in slot order."""
+    if np.asarray(maps.tile_kind).ndim == 3:
+        raise NotImplementedError("stacked multimaps are not ported yet")
+    mask = (
+        np.asarray(maps.obj_mask)
+        & np.asarray(maps.obj_is_dynamic)
+        & (np.asarray(maps.obj_kind) != T.OBJ_KIND_IDS["trafficlight"])
+    )
+    kinds = np.asarray(maps.obj_kind)
+    pos = np.asarray(maps.obj_pos)
+    rot = np.asarray(maps.obj_y_rot)
+    hd = np.asarray(maps.obj_halfdims)
+    rad = np.asarray(maps.obj_safety_rad)
+    wdist = np.asarray(maps.obj_walk_dist)
+    duckie_id = T.OBJ_KIND_IDS["duckie"]
+    return [
+        dict(
+            slot=int(s),
+            kind="duckie" if int(kinds[s]) == duckie_id else "duckiebot",
+            x0=float(pos[s, 0]), z0=float(pos[s, 2]), a0=float(rot[s]),
+            hw=float(hd[s, 0]), hl=float(hd[s, 1]), rad=float(rad[s]),
+            walk_dist=float(wdist[s]), map=None,
+        )
+        for s in np.nonzero(mask)[0]
+    ]
+
+
+# curve table rows per tile ([CT_F, T]): 12 curves x 8 packed control-point
+# coordinates at c*12 + k, then chord x, chord z and valid flags
+N_CURVES = 12
+CT_CPS = 0
+CT_CHX = 144
+CT_CHZ = 156
+CT_VALID = 168
+CT_F = 184
+
+# object table ([OT_F, M]): corners(8), SAT norms(4), pos x/z, safety
+# radius, active, dynamic
+OT_CX = list(range(0, 8))
+OT_NX = list(range(8, 12))
+OT_PX, OT_PZ, OT_RAD, OT_ACT, OT_DYN = 12, 13, 14, 15, 16
+OT_F = 24
+
+# spawn bank ([8, BANK_K]): pose + precomputed lane features of the pose
+BK_X, BK_Y, BK_Z, BK_ANG = 0, 1, 2, 3
+BK_LDIST, BK_LDOT, BK_LDEG, BK_INLANE = 4, 5, 6, 7
+BANK_K = 512
+
+# hash-stream salt of the auto-reset spawn pick
+SALT_SPAWN = 0x20000000
+
+
+def _acos(x):
+    """Polynomial arccos (Abramowitz-Stegun 4.4.45, ~7e-5 rad)."""
+    ax = torch.abs(x)
+    p = -0.0187293 * ax + 0.0742610
+    p = p * ax + -0.2121144
+    p = p * ax + 1.5707288
+    r = p * torch.sqrt(torch.clamp(1.0 - ax, min=0.0))
+    return torch.where(x < 0.0, np.pi - r, r)
+
+
+def _hash_u32(a, b, salt=0):
+    """Multiply-free Jenkins-style hash of two int32 tensors -> int32 in
+    [0, 2^31). int32 wraparound and arithmetic >> are part of the
+    definition (torch's >> on int32 is arithmetic, like jnp's)."""
+    h = (a ^ (b << 13)) + b + salt
+    h = h + (h << 10)
+    h = h ^ (h >> 6)
+    h = h + (h << 3)
+    h = h ^ (h >> 11)
+    h = h + (h << 15)
+    h = h ^ (h >> 7)
+    return h & 0x7FFFFFFF
+
+
+def build_tables(cfg, maps):
+    """Static numpy kernel tables of one compiled map (dict)."""
+    if np.asarray(maps.tile_kind).ndim == 3:
+        return _build_tables_multi(cfg, maps)
+    return _build_tables_single(cfg, maps)
+
+
+def _build_tables_multi(cfg, maps):
+    raise NotImplementedError("stacked multimaps are not ported yet")
+
+
+def _build_tables_single(cfg, maps):
+    Hg, Wg = maps.grid_shape
+    n_tiles = Hg * Wg
+
+    curves = np.asarray(maps.curves, dtype=np.float32).reshape(
+        n_tiles, -1, 4, 3)
+    cmask = np.asarray(maps.curve_mask).reshape(n_tiles, -1)
+    nC = curves.shape[1]
+    ct = np.zeros((CT_F, n_tiles), dtype=np.float32)
+    for t in range(n_tiles):
+        for c in range(min(nC, N_CURVES)):
+            cps = curves[t, c]
+            for k in range(4):
+                ct[CT_CPS + c * 12 + 2 * k, t] = cps[k, 0]
+                ct[CT_CPS + c * 12 + 2 * k + 1, t] = cps[k, 2]
+            if cmask[t, c]:
+                # strict f32 op sequence (mul, mul, add, sqrt, max, div)
+                ch = (cps[3] - cps[0]).astype(np.float32)
+                n2 = ch[0] * ch[0] + ch[2] * ch[2]
+                n = np.maximum(np.sqrt(n2), np.float32(1e-12))
+                ct[CT_CHX + c, t] = ch[0] / n
+                ct[CT_CHZ + c, t] = ch[2] / n
+                ct[CT_VALID + c, t] = 1.0
+
+    # packed tile words: byte = kind | angle << 4, 4 tiles per word
+    kind = np.asarray(maps.tile_kind).reshape(-1).astype(np.int64)
+    ang = np.asarray(maps.tile_angle).reshape(-1).astype(np.int64)
+    byte = (kind & 0xF) | ((ang & 0x3) << 4)
+    n_words = -(-n_tiles // 4)
+    b = np.zeros(n_words * 4, dtype=np.int64)
+    b[:n_tiles] = byte
+    b4 = b.reshape(n_words, 4)
+    words = (
+        b4[:, 0] | (b4[:, 1] << 8) | (b4[:, 2] << 16) | (b4[:, 3] << 24)
+    ).astype(np.int32)
+    wpad = max(-(-n_words // 128) * 128, 128)
+    words_padded = np.zeros((1, wpad), dtype=np.int32)
+    words_padded[0, :n_words] = words
+
+    # object table (static poses)
+    M = int(np.asarray(maps.obj_mask).sum())
+    ot = np.zeros((OT_F, max(M, 1)), dtype=np.float32)
+    if M:
+        mask = np.asarray(maps.obj_mask)
+        oc = np.asarray(maps.obj_corners)[mask]
+        on = np.asarray(maps.obj_norms)[mask]
+        op = np.asarray(maps.obj_pos)[mask]
+        orad = np.asarray(maps.obj_safety_rad)[mask]
+        odyn = np.asarray(maps.obj_is_dynamic)[mask]
+        for m in range(M):
+            for i in range(4):
+                ot[OT_CX[2 * i], m] = oc[m, i, 0]
+                ot[OT_CX[2 * i + 1], m] = oc[m, i, 1]
+            for i in range(2):
+                ot[OT_NX[2 * i], m] = on[m, i, 0]
+                ot[OT_NX[2 * i + 1], m] = on[m, i, 1]
+            ot[OT_PX, m] = op[m, 0]
+            ot[OT_PZ, m] = op[m, 2]
+            ot[OT_RAD, m] = orad[m]
+            ot[OT_ACT, m] = 1.0
+            ot[OT_DYN, m] = float(odyn[m])
+
+    # spawn bank, transposed, first BANK_K entries (sorted by |lane deg|)
+    sp = np.asarray(maps.spawn_pos)[:BANK_K]
+    sa = np.asarray(maps.spawn_angle)[:BANK_K]
+    sd = np.asarray(maps.spawn_lane_deg)[:BANK_K]
+    bank = np.zeros((8, BANK_K), dtype=np.float32)
+    bank[BK_X] = sp[:, 0]
+    bank[BK_Y] = sp[:, 1]
+    bank[BK_Z] = sp[:, 2]
+    bank[BK_ANG] = sa
+    if cfg.start_pose is not None or cfg.user_tile_start is not None:
+        raise NotImplementedError("start-pose overrides are not ported yet")
+
+    from dtown_torch.spawn_bank import lane_features_np
+
+    ldist, ldot, ldeg, inlane = lane_features_np(
+        float(maps.tile_size), np.asarray(maps.drivable),
+        np.asarray(maps.curves, dtype=np.float64),
+        np.asarray(maps.curve_mask),
+        sp.astype(np.float64), sa.astype(np.float64),
+    )
+    bank[BK_LDIST] = ldist
+    bank[BK_LDOT] = ldot
+    bank[BK_LDEG] = ldeg
+    bank[BK_INLANE] = inlane.astype(np.float32)
+    n_ok = int((np.abs(sd) < cfg.accept_start_angle_deg).sum())
+    n_ok = max(n_ok, 1)
+
+    npcs = tuple(moving_npcs(maps))
+    slot_to_npc = {npc["slot"]: i for i, npc in enumerate(npcs)}
+    cols = np.nonzero(np.asarray(maps.obj_mask))[0]
+    moving_cols = tuple(
+        (int(c), slot_to_npc[int(s)])
+        for c, s in enumerate(cols) if int(s) in slot_to_npc
+    )
+    optional = np.asarray(maps.obj_optional)
+    opt_cols = tuple(
+        int(c) for c, s in enumerate(cols) if bool(optional[int(s)])
+    )
+
+    return dict(
+        ct=ct, words=words_padded, ot=ot, bank=bank, n_ok=n_ok,
+        n_words=n_words, M=M, Hg=Hg, Wg=Wg,
+        ts_inv=np.float32(1.0 / float(maps.tile_size)),
+        npcs=npcs, moving_cols=moving_cols, opt_cols=opt_cols,
+    )
+
+
+def _check_scope(cfg, tables):
+    if tables.get("npcs"):
+        raise NotImplementedError("moving NPCs are not ported yet")
+    if cfg.domain_rand:
+        raise NotImplementedError("domain randomization is not ported yet")
+
+
+# ---- kernel scalar parameters ------------------------------------------
+# Python-double constant folds of the reference, rounded once to float32
+# (what jnp does with a Python float next to an f32 array). The CUDA
+# kernel reads them in this order (csrc/state_kernel.cu, P_* indices).
+_PARAM_NAMES = (
+    "dt", "inv_dt", "k_r_inv", "k_l_inv", "radius", "limit", "max_steps",
+    "cam_back", "hw", "hl", "ts_inv", "agent_rad",
+)
+
+
+def kernel_params(cfg, tables):
+    """float32 [len(_PARAM_NAMES)] scalar parameters of one map/config."""
+    dt = float(cfg.delta_time)
+    vals = dict(
+        dt=dt,
+        inv_dt=1.0 / dt,
+        k_r_inv=(float(cfg.gain) + float(cfg.trim)) / float(cfg.k),
+        k_l_inv=(float(cfg.gain) - float(cfg.trim)) / float(cfg.k),
+        radius=float(cfg.wheel_radius),
+        limit=float(cfg.limit),
+        max_steps=float(cfg.max_steps),
+        cam_back=C.CAMERA_FORWARD_DIST - 0.5 * C.ROBOT_LENGTH,
+        hw=0.5 * C.ROBOT_WIDTH,
+        hl=0.5 * C.ROBOT_LENGTH,
+        ts_inv=float(tables["ts_inv"]),
+        agent_rad=C.AGENT_SAFETY_RAD,
+    )
+    return np.array([vals[k] for k in _PARAM_NAMES], dtype=np.float32)
+
+
+def device_tables(cfg, tables, device):
+    """The kernel's inputs that do not change per step, on ``device``."""
+    _check_scope(cfg, tables)
+    dev = torch.device(device)
+    return dict(
+        words=torch.as_tensor(tables["words"][0], device=dev),
+        ct=torch.as_tensor(tables["ct"], device=dev),
+        ot=torch.as_tensor(tables["ot"], device=dev),
+        bank=torch.as_tensor(tables["bank"], device=dev),
+        prm=torch.as_tensor(kernel_params(cfg, tables), device=dev),
+        n_tiles=int(tables["Hg"] * tables["Wg"]),
+        Hg=int(tables["Hg"]), Wg=int(tables["Wg"]), M=int(tables["M"]),
+        n_ok=int(tables["n_ok"]),
+        frame_skip=int(cfg.frame_skip),
+        use_wm=bool(cfg.use_wheel_model),
+        auto_reset=bool(cfg.auto_reset),
+    )
+
+
+def state_step_reference(blob, act0, act1, dev):
+    """Plain torch version of the state kernel. blob f32 [NF, B]; act0/act1
+    f32 [B]; dev = device_tables(...). Returns the new blob."""
+    prm = [float(v) for v in dev["prm"].cpu()]
+    (dt, inv_dt, k_r_inv, k_l_inv, radius, limit, max_steps, cam_back,
+     hw, hl, ts_inv, agent_rad) = prm
+    Hg, Wg = dev["Hg"], dev["Wg"]
+    words = dev["words"]
+    ct = dev["ct"]
+    ot = dev["ot"]
+    bank = dev["bank"]
+    i32 = torch.int32
+    where = torch.where
+
+    pos_x, pos_y, pos_z = blob[F_POS_X], blob[F_POS_Y], blob[F_POS_Z]
+    angle = blob[F_ANGLE]
+    robot_speed = blob[F_ROBOT_SPEED]
+    wheel_dist = blob[F_WHEEL_DIST]
+    step_cnt = blob[F_STEP]
+    rng_ctr = blob[F_RNG]
+    env_id = blob[F_ENVID]
+    map_row = blob[F_MAPID]
+
+    # ---- wheel model -------------------------------------------------
+    if dev["use_wm"]:
+        # divide by a full tensor, not a Python scalar: torch's CUDA divide
+        # by a scalar multiplies by its reciprocal, which rounds differently
+        radius_t = torch.full_like(act0, radius)
+        omega_r = (act0 + 0.5 * act1 * wheel_dist) / radius_t
+        omega_l = (act0 - 0.5 * act1 * wheel_dist) / radius_t
+        u_r = torch.clamp(omega_r * k_r_inv, -limit, limit)
+        u_l = torch.clamp(omega_l * k_l_inv, -limit, limit)
+    else:
+        u_l, u_r = act0, act1
+    u_l = torch.clamp(u_l, -1.0, 1.0)
+    u_r = torch.clamp(u_r, -1.0, 1.0)
+    vl = u_l * robot_speed
+    vr = u_r * robot_speed
+
+    # ---- differential-drive integration ------------------------------
+    speed = torch.zeros_like(angle)
+    for _ in range(dev["frame_skip"]):
+        s_a, c_a = sincos(angle)
+        dir_x, dir_z = c_a, -s_a
+        straight = vl == vr
+        npx_s = pos_x + dt * vl * dir_x
+        npz_s = pos_z + dt * vl * dir_z
+        denom = where(straight, 1.0, vl - vr)
+        w = (vr - vl) / wheel_dist
+        r_icc = wheel_dist * (vl + vr) / (2.0 * denom)
+        rot = w * dt
+        cx_ = pos_x + r_icc * s_a
+        cz_ = pos_z + r_icc * c_a
+        s_r, c_r = sincos(rot)
+        dx_ = pos_x - cx_
+        dz_ = pos_z - cz_
+        npx_a = cx_ + dx_ * c_r + dz_ * s_r
+        npz_a = cz_ + dz_ * c_r - dx_ * s_r
+        new_x = where(straight, npx_s, npx_a)
+        new_z = where(straight, npz_s, npz_a)
+        new_angle = angle + where(straight, 0.0, rot)
+        ddx = new_x - pos_x
+        ddz = new_z - pos_z
+        speed = torch.sqrt(ddx * ddx + ddz * ddz) * inv_dt
+        pos_x, pos_z, angle = new_x, new_z, new_angle
+
+    step_cnt = step_cnt + float(dev["frame_skip"])
+
+    s_a, c_a = sincos(angle)
+    dir_x, dir_z = c_a, -s_a
+    right_x, right_z = s_a, c_a
+
+    # ---- drivability -------------------------------------------------
+    acx = pos_x + cam_back * dir_x
+    acz = pos_z + cam_back * dir_z
+
+    def drivable_at(px, pz):
+        fi = torch.floor(px * ts_inv)
+        fj = torch.floor(pz * ts_inv)
+        ing = (fi >= 0) & (fi < Wg) & (fj >= 0) & (fj < Hg)
+        ii = torch.clamp(fi.to(i32), 0, Wg - 1)
+        jj = torch.clamp(fj.to(i32), 0, Hg - 1)
+        tid = jj * Wg + ii
+        word = words[(tid >> 2).long()]
+        kind = (word >> ((tid & 3) * 8)) & 0xF
+        driv = (kind >= T.TILE_STRAIGHT) & (kind <= T.TILE_4WAY)
+        return ing & driv, tid
+
+    d_c, _ = drivable_at(pos_x, pos_z)
+    d_c2, _ = drivable_at(acx, acz)
+    d_l, _ = drivable_at(acx - hw * right_x, acz - hw * right_z)
+    d_r, _ = drivable_at(acx + hw * right_x, acz + hw * right_z)
+    d_f, _ = drivable_at(acx + hl * dir_x, acz + hl * dir_z)
+    all_driv = d_c2 & d_l & d_r & d_f
+
+    # ---- lane query --------------------------------------------------
+    def lane_query(qx, qz, qdx, qdz):
+        q_driv, tid_q = drivable_at(qx, qz)
+        pkg = ct[:, tid_q.long()]                     # [CT_F, B]
+        best_dot = torch.full_like(qx, -1e30)
+        cps = [torch.zeros_like(qx) for _ in range(8)]
+        for c in range(N_CURVES):
+            dot = pkg[CT_CHX + c] * qdx + pkg[CT_CHZ + c] * qdz
+            dot = where(pkg[CT_VALID + c] > 0.5, dot, -1e30)
+            better = dot > best_dot
+            best_dot = where(better, dot, best_dot)
+            for k in range(8):
+                cps[k] = where(better, pkg[CT_CPS + c * 12 + k], cps[k])
+        x0, z0, x1, z1, x2, z2, x3, z3 = cps
+
+        def bz_point(t):
+            u = 1.0 - t
+            w0 = u * u * u
+            w1 = 3.0 * t * u * u
+            w2 = 3.0 * t * t * u
+            w3 = t * t * t
+            return (w0 * x0 + w1 * x1 + w2 * x2 + w3 * x3,
+                    w0 * z0 + w1 * z1 + w2 * z2 + w3 * z3)
+
+        t_bot = torch.zeros_like(qx)
+        t_top = torch.ones_like(qx)
+        for _ in range(C.BEZIER_CLOSEST_ITERS):
+            mid = 0.5 * (t_bot + t_top)
+            bx, bz_ = bz_point(t_bot)
+            tx, tz = bz_point(t_top)
+            ebx, ebz = bx - qx, bz_ - qz
+            etx, etz = tx - qx, tz - qz
+            keep_bot = (ebx * ebx + ebz * ebz) < (etx * etx + etz * etz)
+            t_bot, t_top = (where(keep_bot, t_bot, mid),
+                            where(keep_bot, mid, t_top))
+        t_star = 0.5 * (t_bot + t_top)
+        px_c, pz_c = bz_point(t_star)
+        u = 1.0 - t_star
+        tanx = (3.0 * u * u * (x1 - x0) + 6.0 * u * t_star * (x2 - x1)
+                + 3.0 * t_star * t_star * (x3 - x2))
+        tanz = (3.0 * u * u * (z1 - z0) + 6.0 * u * t_star * (z2 - z1)
+                + 3.0 * t_star * t_star * (z3 - z2))
+        tinv = 1.0 / torch.sqrt(
+            torch.clamp(tanx * tanx + tanz * tanz, min=1e-24))
+        return px_c, pz_c, tanx * tinv, tanz * tinv, best_dot, q_driv
+
+    # ---- SAT collision + proximity ------------------------------------
+    collided = torch.zeros_like(all_driv)
+    prox_static = torch.full_like(pos_x, 1e30)
+    prox_dyn = torch.zeros_like(pos_x)
+    M = dev["M"]
+    if M > 0:
+        agc = []
+        for sf, sr in ((-hl, hw), (hl, hw), (hl, -hw), (-hl, -hw)):
+            agc.append((acx + sf * dir_x + sr * right_x,
+                        acz + sf * dir_z + sr * right_z))
+        flags = ot[[OT_ACT, OT_DYN]].cpu().numpy() > 0.5
+        for m in range(M):
+            # 0-d float32 tensors: table values enter the math unrounded
+            ocx = [ot[OT_CX[2 * i], m] for i in range(4)]
+            ocz = [ot[OT_CX[2 * i + 1], m] for i in range(4)]
+            axes = [(dir_x, dir_z), (right_x, right_z),
+                    (ot[OT_NX[0], m], ot[OT_NX[1], m]),
+                    (ot[OT_NX[2], m], ot[OT_NX[3], m])]
+            o_act, o_dyn = bool(flags[0, m]), bool(flags[1, m])
+            separated = torch.zeros_like(all_driv)
+            for ax, az in axes:
+                amin = amax = None
+                for gx, gz in agc:
+                    pa = gx * ax + gz * az
+                    amin = pa if amin is None else torch.minimum(amin, pa)
+                    amax = pa if amax is None else torch.maximum(amax, pa)
+                bmin = bmax = None
+                for i in range(4):
+                    pb = ocx[i] * ax + ocz[i] * az
+                    bmin = pb if bmin is None else torch.minimum(bmin, pb)
+                    bmax = pb if bmax is None else torch.maximum(bmax, pb)
+                separated = separated | (amax < bmin) | (bmax < amin)
+            if o_act:
+                collided = collided | ~separated
+            dxo = ot[OT_PX, m] - acx
+            dzo = ot[OT_PZ, m] - acz
+            dist_o = torch.sqrt(dxo * dxo + dzo * dzo)
+            score = dist_o - agent_rad - ot[OT_RAD, m]
+            if o_act and not o_dyn:
+                prox_static = torch.minimum(prox_static, score)
+            if o_act and o_dyn:
+                prox_dyn = prox_dyn + torch.clamp(score, max=0.0)
+    col_penalty = torch.clamp(prox_static, max=0.0) + prox_dyn
+
+    valid = all_driv & ~collided
+
+    # ---- lane position -----------------------------------------------
+    px_c, pz_c, tanx, tanz, best_dot, _ = lane_query(
+        pos_x, pos_z, dir_x, dir_z)
+    dot_dir = torch.clamp(dir_x * tanx + dir_z * tanz, -1.0, 1.0)
+    rox = -tanz
+    roz = tanx
+    signed_dist = (pos_x - px_c) * rox + (pos_z - pz_c) * roz
+    ang_rad = _acos(dot_dir)
+    ang_rad = where(dir_x * rox + dir_z * roz < 0.0, -ang_rad, ang_rad)
+    in_lane = d_c & (best_dot > 0.0)
+
+    # ---- reward / done -----------------------------------------------
+    reward_full = (
+        C.REWARD_SPEED_COEF * speed * dot_dir
+        + C.REWARD_DIST_COEF * torch.abs(signed_dist)
+        + C.REWARD_COLLISION_COEF * col_penalty
+    )
+    reward_alive = where(in_lane, reward_full,
+                         C.REWARD_COLLISION_COEF * col_penalty)
+    crashed = ~valid
+    truncated = step_cnt >= max_steps
+    done = crashed | truncated
+    reward = where(crashed, C.REWARD_INVALID_POSE, reward_alive)
+
+    # ---- auto-reset from the spawn bank -------------------------------
+    lane_deg = ang_rad * (180.0 / np.pi)
+    in_lane_f = in_lane.to(torch.float32)
+    o_ldist, o_ldot, o_ldeg, o_inlane = signed_dist, dot_dir, lane_deg, \
+        in_lane_f
+    if dev["auto_reset"]:
+        h = _hash_u32(rng_ctr.to(i32), env_id.to(i32), salt=SALT_SPAWN)
+        sp = bank[:, (h % max(dev["n_ok"], 1)).long()]   # [8, B]
+        pos_x = where(done, sp[BK_X], pos_x)
+        pos_y = where(done, sp[BK_Y], pos_y)
+        pos_z = where(done, sp[BK_Z], pos_z)
+        angle = where(done, sp[BK_ANG], angle)
+        speed = where(done, 0.0, speed)
+        vl = where(done, 0.0, vl)
+        vr = where(done, 0.0, vr)
+        step_cnt = where(done, 0.0, step_cnt)
+        o_ldist = where(done, sp[BK_LDIST], o_ldist)
+        o_ldot = where(done, sp[BK_LDOT], o_ldot)
+        o_ldeg = where(done, sp[BK_LDEG], o_ldeg)
+        o_inlane = where(done, sp[BK_INLANE], o_inlane)
+    rng_ctr = rng_ctr + 1.0
+
+    rows = [
+        pos_x, pos_y, pos_z, angle, speed, vl, vr, step_cnt, rng_ctr,
+        robot_speed, wheel_dist, act0, act1,
+        reward, done.to(torch.float32), signed_dist, dot_dir,
+        lane_deg, in_lane_f,
+        collided.to(torch.float32), step_cnt * dt, env_id,
+        o_ldist, o_ldot, o_ldeg, o_inlane, map_row,
+    ]
+    out = torch.zeros_like(blob)
+    out[:len(rows)] = torch.stack(rows)
+    return out
+
+
+def _lib():
+    from dtown_torch import _build
+
+    lib = _build.load("state_kernel")
+    fn = lib.dtown_state_step
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def state_step(blob, actions, dev):
+    """One fused state step. blob f32 [NF, B]; actions f32 [B, 2];
+    dev = device_tables(...) on the blob's device. Returns the new blob.
+
+    A CUDA blob goes through the hand-written kernel (csrc/state_kernel.cu)
+    and a CPU blob through ``state_step_reference``."""
+    if blob.dtype != torch.float32 or blob.dim() != 2 or blob.shape[0] < NF:
+        raise ValueError(f"blob must be float32 [>={NF}, B], got "
+                         f"{tuple(blob.shape)} {blob.dtype}")
+    B = blob.shape[1]
+    if actions.shape != (B, 2) or actions.dtype != torch.float32:
+        raise ValueError(f"actions must be float32 [{B}, 2], got "
+                         f"{tuple(actions.shape)} {actions.dtype}")
+    if actions.device != blob.device or dev["ct"].device != blob.device:
+        raise ValueError("blob, actions and tables must share one device")
+    if blob.device.type == "cpu":
+        return state_step_reference(blob, actions[:, 0], actions[:, 1], dev)
+    if blob.device.type != "cuda":
+        raise ValueError(f"unsupported device {blob.device}")
+    blob = blob.contiguous()
+    actions = actions.contiguous()
+    out = torch.empty_like(blob)
+    fn = _lib()
+    stream = torch.cuda.current_stream(blob.device).cuda_stream
+    err = fn(blob.data_ptr(), actions.data_ptr(), out.data_ptr(),
+             dev["words"].data_ptr(), dev["ct"].data_ptr(),
+             dev["ot"].data_ptr(), dev["bank"].data_ptr(),
+             dev["prm"].data_ptr(),
+             B, blob.shape[0], dev["n_tiles"], dev["Hg"], dev["Wg"],
+             dev["M"], dev["n_ok"], dev["frame_skip"],
+             int(dev["use_wm"]), int(dev["auto_reset"]), stream)
+    if err != 0:
+        raise RuntimeError(f"state_step kernel launch failed: CUDA error "
+                           f"{err}")
+    state_step.launches += 1
+    return out
+
+
+state_step.launches = 0

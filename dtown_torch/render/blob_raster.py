@@ -1,0 +1,557 @@
+"""Blob-fed render: camera frames straight from the state blob.
+
+Counterpart of dtown/render/blob_raster.py. Each step of the fused RGB
+rollout renders every env's camera frame directly from the state blob
+[NF, B]: camera basis from the pose rows, ray-ground hit, tile lookup in
+the packed tile words, analytic markings with box-filter AA, hash noise,
+then the static scene's sphere/box primitives with size-aware LOD culls,
+and the sky.
+
+``build_render_plan`` bakes the static scene on the host (same plan as
+the reference); ``pack_plan`` flattens it into float32/int32 tables for
+the kernel, so one compiled kernel serves every scene. On a CUDA blob
+``render_frames_from_blob`` launches csrc/blob_render.cu; on a CPU blob it
+runs ``render_frames_reference``, the plain torch version with the same
+float32 operation order.
+
+Scope of this slice: RGB, static rays, one map, static objects. Domain
+randomization, moving NPCs, map stacks, fisheye, grayscale and
+triangle-mesh objects raise NotImplementedError.
+
+Differences from the TPU kernel, none beyond rounding: the ground is
+shaded in float32 and quantized once (the TPU default carries packed u8
+bytes; the two differ by <= ~2 counts), prims fold sequentially instead
+of pair-combined (same winner), and objects are visited in plan order.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from dtown_torch import constants as Cc
+from dtown_torch import types as T
+from dtown_torch.geometry import sincos
+from dtown_torch.ops import state_kernel as sk
+from dtown_torch.render import lod as lodlib
+from dtown_torch.render import meshes as meshlib
+from dtown_torch.render.tile_shading import (
+    INTERSECTION_KINDS, _select_word, _shade_pixels,
+)
+
+LANE_N = 128  # pixel lane width of the [S, 128] frame layout
+
+
+def pack_tile_words(kind, ang):
+    """Pack flattened tile (kind, angle) grids into int32 words, 4 tiles
+    per word: byte = kind | angle << 4, little-endian within the word."""
+    kind = np.asarray(kind).reshape(-1).astype(np.int64)
+    ang = np.asarray(ang).reshape(-1).astype(np.int64)
+    byte = (kind & 0xF) | ((ang & 0x3) << 4)
+    n_tiles = byte.shape[0]
+    n_words = -(-n_tiles // 4)
+    b = np.zeros(n_words * 4, dtype=np.int64)
+    b[:n_tiles] = byte
+    b4 = b.reshape(n_words, 4)
+    words = (
+        b4[:, 0] | (b4[:, 1] << 8) | (b4[:, 2] << 16) | (b4[:, 3] << 24)
+    ).astype(np.int64)
+    return [int(np.int32(w)) for w in words]
+
+
+def build_render_plan(cfg, maps):
+    """Bake the static scene plan of one map (dict), or None when the scene
+    has more than 48 objects (the reference's planless fallback)."""
+    if np.asarray(maps.tile_kind).ndim == 3:
+        raise NotImplementedError("stacked multimaps are not ported yet")
+    if cfg.domain_rand:
+        raise NotImplementedError("domain randomization is not ported yet")
+    if cfg.mesh_fidelity == "triangles":
+        raise NotImplementedError("triangle-mesh objects are not ported yet")
+    obj_mask = np.asarray(maps.obj_mask)
+    kinds = np.asarray(maps.obj_kind)
+    if not cfg.render_objects:
+        obj_mask = np.zeros_like(obj_mask)
+    n_objects = int(obj_mask.sum())
+    if n_objects > 48:
+        return None
+    clustered = n_objects > 24
+    npcs = sk.moving_npcs(maps)
+    if npcs:
+        raise NotImplementedError("moving NPCs are not ported yet")
+
+    light = np.asarray(Cc.NOMINAL_LIGHT_DIR, np.float64)
+    light = light / np.linalg.norm(light)
+    amb = float(Cc.NOMINAL_AMBIENT)
+    diffuse_g = max(0.0, -light[1])
+    shade_g = amb + (1.0 - amb) * diffuse_g
+
+    tan_half = math.tan(0.5 * math.radians(float(Cc.CAMERA_FOV_Y)))
+    pitch = math.radians(float(Cc.CAMERA_ANGLE))
+
+    kind = np.asarray(maps.tile_kind).reshape(-1).astype(np.int64)
+    ang = np.asarray(maps.tile_angle).reshape(-1).astype(np.int64)
+    words = pack_tile_words(kind, ang)
+    present = frozenset(int(x) for x in np.unique(kind))
+
+    tables = meshlib.prim_tables()
+    cull_d = float(cfg.obj_cull_dist)
+    lod_base = lodlib.prim_culld_base(cfg)
+    pos = np.asarray(maps.obj_pos, np.float64)
+    rot = np.asarray(maps.obj_y_rot, np.float64)
+    scale = np.asarray(maps.obj_scale, np.float64)
+    objs = []
+    for m in np.nonzero(obj_mask)[0]:
+        k = int(kinds[m])
+        s_r = math.sin(-float(rot[m]))
+        c_r = math.cos(-float(rot[m]))
+        # world->model rotation of the light direction
+        lmx = light[0] * c_r + light[2] * s_r
+        lmy = light[1]
+        lmz = light[2] * c_r - light[0] * s_r
+        sc = float(scale[m])
+        prims = []
+        for p in range(meshlib.P_MAX):
+            if not tables["mask"][k, p]:
+                continue
+            prims.append(dict(
+                is_box=int(tables["type"][k, p]) == meshlib.BOX,
+                center=tuple(float(x) for x in tables["center"][k, p]),
+                param=tuple(float(x) for x in tables["param"][k, p]),
+                color=tuple(float(x) for x in tables["color"][k, p]),
+                lamp=bool(tables["phase"][k, p]),
+                culld=min(cull_d, float(lod_base[k, p]) * sc),
+            ))
+        objs.append(dict(
+            pos=tuple(float(x) for x in pos[m]),
+            s_r=s_r, c_r=c_r, inv_s=1.0 / max(sc, 1e-6), scale=sc,
+            l_model=(float(lmx), float(lmy), float(lmz)),
+            prims=prims, npc_idx=None, wiggle=False, slot=int(m), map=None,
+        ))
+    optional = np.asarray(maps.obj_optional)
+    opt_bit = {}
+    kbit = 0
+    for s in np.nonzero(np.asarray(maps.obj_mask))[0]:
+        if bool(optional[int(s)]):
+            opt_bit[int(s)] = kbit
+            kbit += 1
+    for ob in objs:
+        ob["opt_bit"] = opt_bit.get(ob["slot"])
+    if clustered:
+        for ob in objs:
+            ob["culld"] = max(p.get("culld", cull_d) for p in ob["prims"])
+            ob["lod_band"] = _lod_band(ob["culld"], cull_d)
+    else:
+        objs = _lod_split(objs, cull_d)
+
+    Hg, Wg = maps.grid_shape
+    return dict(
+        domain_rand=False,
+        aa=bool(getattr(cfg, "marking_aa", True)),
+        n_real=n_objects, n_npc=0, n_opt=kbit, multi=None,
+        Hg=int(Hg), Wg=int(Wg), n_words=len(words), words=words,
+        present=present, ts_inv=1.0 / float(maps.tile_size),
+        tan_half=tan_half, sin_pitch=math.sin(pitch),
+        cos_pitch=math.cos(pitch),
+        cam_height=float(Cc.CAMERA_FLOOR_DIST),
+        cam_fwd=float(Cc.CAMERA_FORWARD_DIST),
+        light=tuple(float(x) for x in light), ambient=amb,
+        shade=float(shade_g),
+        ground=tuple(float(x) for x in np.asarray(Cc.NOMINAL_GROUND_COLOR)),
+        horizon=tuple(float(x)
+                      for x in np.asarray(Cc.NOMINAL_HORIZON_COLOR)),
+        cull2=float(cfg.obj_cull_dist) ** 2,
+        dt=float(cfg.delta_time),
+        tl_period=float(Cc.TRAFFICLIGHT_PERIOD),
+        objs=objs,
+        cluster=2 if clustered else 0,
+    )
+
+
+def _lod_band(cd, cull_d):
+    """LOD band of a cull distance: -1 = full range, else the halving
+    octave below obj_cull_dist (capped at 2)."""
+    if cd >= cull_d * 0.999:
+        return -1
+    return min(2, int(math.floor(math.log2(cull_d / cd))))
+
+
+def _lod_split(objs, cull_d):
+    """Split each static object's prims into per-LOD-band pseudo-objects
+    (shared pose) and annotate culld = max member prim cull distance."""
+    out = []
+    for ob in objs:
+        prims = ob["prims"]
+        if not prims:
+            continue
+        bands = {}
+        for p in prims:
+            bands.setdefault(
+                _lod_band(p.get("culld", cull_d), cull_d), []).append(p)
+        for b in sorted(bands):
+            o2 = dict(ob)
+            o2["prims"] = bands[b]
+            o2["lod_band"] = b
+            o2["culld"] = max(p.get("culld", cull_d) for p in bands[b])
+            out.append(o2)
+    return out
+
+
+def _static_ray_planes(H, W, plan):
+    """[5, S, 128] float32 static per-pixel ray planes [A, B, D, E, F]
+    (no fisheye): the first five planes of the reference's. Per env the
+    ray is a yaw rotation of two planes: dx = c*A + s*B, dz = c*B - s*A,
+    dy = D; E = -1/D on ground lanes (0 on sky lanes), F = the clamped
+    1/D of the box y-slab. The reference's sixth plane (baked packed sky)
+    is not needed: the float path computes the sky from D."""
+    S = H * W // LANE_N
+    p = np.arange(S * LANE_N, dtype=np.int64).reshape(S, LANE_N)
+    y = p // W
+    x = p - y * W
+    xn_b = ((x + 0.5) * (1.0 / W) - 0.5) * 2.0
+    yn_b = (0.5 - (y + 0.5) * (1.0 / H)) * 2.0
+    aspect = W / H
+    xn = xn_b * (plan["tan_half"] * aspect)
+    yn = yn_b * plan["tan_half"]
+    sp, cp = plan["sin_pitch"], plan["cos_pitch"]
+    ws = 1.0 / np.sqrt(1.0 + xn * xn + yn * yn)
+    A = ((cp + yn * sp) * ws).astype(np.float32)
+    B = (xn * ws).astype(np.float32)
+    D = ((-sp + yn * cp) * ws).astype(np.float32)
+    ground = D < -1e-6
+    E = np.where(ground, -1.0 / np.where(ground, D.astype(np.float64),
+                                         1.0), 0.0).astype(np.float32)
+    Dc = np.where(np.abs(D) < 1e-9, np.where(D >= 0, 1e-9, -1e-9),
+                  D.astype(np.float64))
+    F = (1.0 / Dc).astype(np.float32)
+    return np.stack([A, B, D, E, F])
+
+
+# ---- flat kernel tables ---------------------------------------------------
+# scene floats (csrc/blob_render.cu S_* indices)
+_SCENE_NAMES = (
+    "cam_fwd", "cam_height", "ts_inv", "k_fw", "shade", "gr", "gg", "gb",
+    "hr", "hg", "hb", "ambient", "k_diff", "lwx", "lwy", "lwz", "dt",
+    "inv_tl",
+)
+# per-object floats (O_*) and ints (OI_*)
+OBJ_F = 11
+(O_X, O_Y, O_Z, O_SR, O_CR, O_INVS, O_SC, O_LMX, O_LMY, O_LMZ,
+ O_CULL2) = range(11)
+OBJ_I = 3
+OI_P0, OI_NP, OI_BOX = range(3)
+# per-prim floats (P_*) and ints (PI_*)
+PRIM_F = 12
+(P_CX, P_CY, P_CZ, P_P0, P_P1, P_P2, P_CD2, P_CWX, P_CWY, P_CWZ, P_RW2,
+ P_NDV) = range(12)
+PRIM_I = 4
+PI_BOX, PI_LAMP, PI_COLOR, PI_OWN = range(4)
+
+
+def _q8(c):
+    return max(0, min(255, int(round(c * 255.0))))
+
+
+def _packed(c3):
+    return (_q8(c3[0]) << 16) | (_q8(c3[1]) << 8) | _q8(c3[2])
+
+
+LAMP_GREEN = _packed((0.1, 0.85, 0.15))
+LAMP_RED = _packed((0.9, 0.1, 0.1))
+
+
+def pack_plan(cfg, plan, device):
+    """Flatten a render plan into the kernel's device tables.
+
+    Every value is the reference's Python-double constant fold, rounded
+    once to float32. Returns a dict of tensors and ints."""
+    H, W = cfg.camera_height, cfg.camera_width
+    if cfg.grayscale:
+        raise NotImplementedError("grayscale rendering is not ported yet")
+    if cfg.distortion:
+        raise NotImplementedError("fisheye distortion is not ported yet")
+    if (H * W) % LANE_N:
+        raise ValueError(f"H*W must be a multiple of {LANE_N}: {H}x{W}")
+    present = plan["present"]
+    marking = any(k in present
+                  for k in range(T.TILE_STRAIGHT, T.TILE_4WAY + 1))
+    aa = bool(plan["aa"]) and marking
+    amb = plan["ambient"]
+    tany = plan["tan_half"]
+    scene = dict(
+        cam_fwd=plan["cam_fwd"], cam_height=plan["cam_height"],
+        ts_inv=plan["ts_inv"],
+        k_fw=(H * 0.5) / tany / plan["ts_inv"],
+        shade=plan["shade"],
+        gr=plan["ground"][0], gg=plan["ground"][1], gb=plan["ground"][2],
+        hr=plan["horizon"][0], hg=plan["horizon"][1],
+        hb=plan["horizon"][2],
+        ambient=amb, k_diff=1.0 - amb,
+        lwx=plan["light"][0], lwy=plan["light"][1], lwz=plan["light"][2],
+        dt=plan["dt"], inv_tl=1.0 / plan["tl_period"],
+    )
+    cull_w = math.sqrt(plan["cull2"])
+    objs = plan["objs"]
+    n_prims = sum(len(ob["prims"]) for ob in objs)
+    of = np.zeros((max(len(objs), 1), OBJ_F), np.float32)
+    oi = np.zeros((max(len(objs), 1), OBJ_I), np.int32)
+    pf = np.zeros((max(n_prims, 1), PRIM_F), np.float32)
+    pi = np.zeros((max(n_prims, 1), PRIM_I), np.int32)
+    j = 0
+    for i, ob in enumerate(objs):
+        ox, oy, oz = ob["pos"]
+        s_r, c_r, sc = ob["s_r"], ob["c_r"], ob["scale"]
+        culld_o = float(ob.get("culld", cull_w))
+        of[i, [O_X, O_Y, O_Z, O_SR, O_CR, O_INVS, O_SC]] = (
+            ox, oy, oz, s_r, c_r, ob["inv_s"], sc)
+        of[i, [O_LMX, O_LMY, O_LMZ]] = ob["l_model"]
+        of[i, O_CULL2] = culld_o * culld_o
+        oi[i, OI_P0] = j
+        oi[i, OI_NP] = len(ob["prims"])
+        oi[i, OI_BOX] = int(any(p["is_box"] for p in ob["prims"]))
+        for pr in ob["prims"]:
+            cx, cy, cz = pr["center"]
+            p0, p1, p2 = pr["param"]
+            cd = pr.get("culld", culld_o)
+            pf[j, [P_CX, P_CY, P_CZ, P_P0, P_P1, P_P2]] = (
+                cx, cy, cz, p0, p1, p2)
+            pf[j, P_CD2] = cd * cd
+            if not pr["is_box"]:
+                rw = p0 * sc
+                pf[j, [P_CWX, P_CWY, P_CWZ]] = (
+                    ox + sc * (cx * c_r - cz * s_r), oy + sc * cy,
+                    oz + sc * (cx * s_r + cz * c_r))
+                pf[j, P_RW2] = rw * rw
+                pf[j, P_NDV] = -1.0 / max(rw, 1e-9)
+            pi[j, PI_BOX] = int(pr["is_box"])
+            pi[j, PI_LAMP] = int(pr["lamp"])
+            pi[j, PI_COLOR] = _packed(pr["color"])
+            pi[j, PI_OWN] = int(cd < culld_o * 0.999)
+            j += 1
+    no_clamp = all(
+        0.0 <= c <= 1.0 for ob in objs for pr in ob["prims"]
+        for c in pr["color"]) and all(
+        0.0 <= c <= 1.0 for c in tuple(plan["ground"])
+        + tuple(plan["horizon"]))
+    dev = torch.device(device)
+    rays = _static_ray_planes(H, W, plan).reshape(5, -1)
+    words = np.asarray(plan["words"], np.int32)
+    return dict(
+        H=H, W=W,
+        rays=torch.as_tensor(np.ascontiguousarray(rays), device=dev),
+        words=torch.as_tensor(words, device=dev),
+        scene=torch.as_tensor(
+            np.array([scene[k] for k in _SCENE_NAMES], np.float32),
+            device=dev),
+        of=torch.as_tensor(of, device=dev), oi=torch.as_tensor(oi, device=dev),
+        pf=torch.as_tensor(pf, device=dev), pi=torch.as_tensor(pi, device=dev),
+        n_objs=len(objs), Hg=plan["Hg"], Wg=plan["Wg"],
+        aa=aa, any_x=any(k in present for k in INTERSECTION_KINDS),
+        no_clamp=no_clamp,
+    )
+
+
+def render_frames_reference(blob, pk):
+    """Plain torch version of the blob render kernel. blob f32 [NF, B];
+    pk = pack_plan(...). Returns uint8 [B, 3, S, 128]."""
+    B = blob.shape[1]
+    H, W = pk["H"], pk["W"]
+    sc_ = [float(v) for v in pk["scene"].cpu()]
+    scene = dict(zip(_SCENE_NAMES, sc_))
+    where = torch.where
+    i32 = torch.int32
+    f32 = torch.float32
+    rays = pk["rays"]
+    A_p, B_p, D_p, E_p, F_p = (rays[i][None, :] for i in range(5))
+    gmask = D_p < -1e-6
+
+    col = lambda f: blob[f][:, None]                # [B, 1]
+    px_s, py_s, pz_s = col(sk.F_POS_X), col(sk.F_POS_Y), col(sk.F_POS_Z)
+    ang_s, step_s = col(sk.F_ANGLE), col(sk.F_STEP)
+    s_a, c_a = sincos(ang_s)
+    eye0 = px_s + scene["cam_fwd"] * c_a
+    eye1 = py_s + scene["cam_height"]
+    eye2 = pz_s + scene["cam_fwd"] * (-s_a)
+
+    dx = c_a * A_p + s_a * B_p                      # [B, P]
+    dy = D_p.expand_as(dx)
+    dz = c_a * B_p - s_a * A_p
+    t_g = eye1 * E_p
+    inv_fw = None
+    if pk["aa"]:
+        k_fw = scene["k_fw"] / eye1
+        inv_fw = dy * dy * k_fw
+    ts_inv = scene["ts_inv"]
+    fx = (eye0 + t_g * dx) * ts_inv
+    fz = (eye2 + t_g * dz) * ts_inv
+    ti = torch.floor(fx)
+    tj = torch.floor(fz)
+    in_grid = ((ti >= 0) & (ti < pk["Wg"]) & (tj >= 0) & (tj < pk["Hg"])
+               & gmask)
+    tid = tj.to(i32) * pk["Wg"] + ti.to(i32)
+    word = _select_word(pk["words"], tid >> 2)
+    byte = (word >> ((tid & 3) << 3)) & 0xFF
+    kind = byte & 0xF
+    angle_idx = (byte >> 4) & 0x3
+    r_, g_, b_ = _shade_pixels(kind, angle_idx, fx - ti, fz - tj,
+                               pk["any_x"], inv_fw=inv_fw)
+    shade = scene["shade"]
+    r_ = where(in_grid, r_, scene["gr"]) * shade
+    g_ = where(in_grid, g_, scene["gg"]) * shade
+    b_ = where(in_grid, b_, scene["gb"]) * shade
+    skyf = 1.0 - 0.35 * torch.clamp(D_p, min=0.0)
+    r_ = where(gmask, r_, scene["hr"] * skyf)
+    g_ = where(gmask, g_, scene["hg"] * skyf)
+    b_ = where(gmask, b_, scene["hb"] * skyf)
+
+    # ---- object pass ------------------------------------------------------
+    t_best = where(gmask, t_g, 1e30)
+    pk_ = torch.full_like(t_best, -1, dtype=i32)
+    dv_ = torch.zeros_like(t_best)
+    if pk["n_objs"]:
+        t_env = step_s * scene["dt"]
+        green = (torch.floor(t_env * scene["inv_tl"]).to(i32) % 2) > 0
+        lamp_pk = where(green, LAMP_GREEN, LAMP_RED).to(i32)    # [B, 1]
+        lw = (scene["lwx"], scene["lwy"], scene["lwz"])
+        dlw = dx * lw[0] + dy * lw[1] + dz * lw[2]
+        inv_dy = F_p
+        of, oi = pk["of"].cpu(), pk["oi"].cpu().tolist()
+        pf, pi = pk["pf"].cpu(), pk["pi"].cpu().tolist()
+        dev = blob.device
+        for o in range(pk["n_objs"]):
+            ov = of[o].to(dev)                       # 0-d f32 scalars
+            p0_, n_p, has_box = oi[o][OI_P0], oi[o][OI_NP], oi[o][OI_BOX]
+            dxo = ov[O_X] - eye0
+            dzo = ov[O_Z] - eye2
+            dist2 = dxo * dxo + dzo * dzo            # [B, 1]
+            act = dist2 < ov[O_CULL2]
+            if has_box:
+                ex = (eye0 - ov[O_X]) * ov[O_INVS]
+                ey = (eye1 - ov[O_Y]) * ov[O_INVS]
+                ez = (eye2 - ov[O_Z]) * ov[O_INVS]
+                emx = ex * ov[O_CR] + ez * ov[O_SR]
+                emz = ez * ov[O_CR] - ex * ov[O_SR]
+                dmx = dx * ov[O_CR] + dz * ov[O_SR]
+                dmz = dz * ov[O_CR] - dx * ov[O_SR]
+
+                def safe_inv(dm):
+                    return 1.0 / where(torch.abs(dm) < 1e-9,
+                                       where(dm >= 0, 1e-9, -1e-9), dm)
+
+                inv_dmx = safe_inv(dmx)
+                inv_dmz = safe_inv(dmz)
+                wx = where(dmx >= 0.0, ov[O_LMX], -ov[O_LMX])
+                wy = where(dy >= 0.0, ov[O_LMY], -ov[O_LMY])
+                wz = where(dmz >= 0.0, ov[O_LMZ], -ov[O_LMZ])
+            for j in range(p0_, p0_ + n_p):
+                pv = pf[j].to(dev)
+                is_box, lamp, color, own = pi[j]
+                gate = (dist2 < pv[P_CD2]) if own else act
+                if is_box:
+                    ocx = emx - pv[P_CX]
+                    ocy = ey - pv[P_CY]
+                    ocz = emz - pv[P_CZ]
+                    t1 = (-pv[P_P0] - ocx) * inv_dmx
+                    t2 = (pv[P_P0] - ocx) * inv_dmx
+                    n1, x1 = torch.minimum(t1, t2), torch.maximum(t1, t2)
+                    t1 = (-pv[P_P1] - ocy) * inv_dy
+                    t2 = (pv[P_P1] - ocy) * inv_dy
+                    n2, x2 = torch.minimum(t1, t2), torch.maximum(t1, t2)
+                    t1 = (-pv[P_P2] - ocz) * inv_dmz
+                    t2 = (pv[P_P2] - ocz) * inv_dmz
+                    n3, x3 = torch.minimum(t1, t2), torch.maximum(t1, t2)
+                    tmin = torch.maximum(torch.maximum(n1, n2), n3)
+                    tmax = torch.minimum(torch.minimum(x1, x2), x3)
+                    t_m = where(tmin > 1e-4, tmin, tmax)
+                    ok_p = (tmax >= tmin) & (tmax > 1e-4)
+                    t_w = t_m * ov[O_SC]
+                    xb = (n1 >= n2) & (n1 >= n3)
+                    yb = (n2 >= n3) & ~xb
+                    dv = where(xb, wx, where(yb, wy, wz))
+                else:
+                    ocx = eye0 - pv[P_CWX]
+                    ocy = eye1 - pv[P_CWY]
+                    ocz = eye2 - pv[P_CWZ]
+                    bq = ocx * dx + ocy * dy + ocz * dz
+                    cq = ocx * ocx + ocy * ocy + ocz * ocz - pv[P_RW2]
+                    disc = bq * bq - cq
+                    t_m = -bq - torch.sqrt(disc)
+                    ok_p = t_m > 1e-4
+                    t_w = t_m
+                    k1 = ocx * lw[0] + ocy * lw[1] + ocz * lw[2]
+                    dv = (k1 + t_m * dlw) * pv[P_NDV]
+                pkc = lamp_pk if lamp else torch.tensor(color, dtype=i32,
+                                                        device=dev)
+                closer = gate & ok_p & (t_w < t_best)
+                pk_ = where(closer, pkc, pk_)
+                dv_ = where(closer, dv, dv_)
+                t_best = where(closer, t_w, t_best)
+        obj_m = pk_ >= 0
+        shn = (scene["ambient"] + scene["k_diff"]
+               * torch.clamp(dv_, min=0.0)) * (1.0 / 255.0)
+        r_ = where(obj_m, ((pk_ >> 16) & 255).to(f32) * shn, r_)
+        g_ = where(obj_m, ((pk_ >> 8) & 255).to(f32) * shn, g_)
+        b_ = where(obj_m, (pk_ & 255).to(f32) * shn, b_)
+
+    def to_u8(xv):
+        if not pk["no_clamp"]:
+            xv = torch.clamp(xv, 0.0, 1.0)
+        return (xv * 255.0 + 0.5).to(i32).to(torch.uint8)
+
+    out = torch.stack([to_u8(r_), to_u8(g_), to_u8(b_)], dim=1)
+    return out.reshape(B, 3, H * W // LANE_N, LANE_N)
+
+
+def _lib():
+    from dtown_torch import _build
+
+    lib = _build.load("blob_render")
+    fn = lib.dtown_blob_render
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def render_frames_from_blob(blob, pk):
+    """Batched RGB render from the state blob [NF, B] with the packed plan
+    ``pk`` (pack_plan, on the blob's device). Returns uint8 planes
+    [B, 3, S, 128], byte-identical to [B, 3, H, W].
+
+    A CUDA blob goes through the hand-written kernel (csrc/blob_render.cu)
+    and a CPU blob through ``render_frames_reference``."""
+    if blob.dtype != torch.float32 or blob.dim() != 2 \
+            or blob.shape[0] < sk.NF:
+        raise ValueError(f"blob must be float32 [>={sk.NF}, B], got "
+                         f"{tuple(blob.shape)} {blob.dtype}")
+    if pk["rays"].device != blob.device:
+        raise ValueError("blob and render tables must share one device")
+    if blob.device.type == "cpu":
+        return render_frames_reference(blob, pk)
+    if blob.device.type != "cuda":
+        raise ValueError(f"unsupported device {blob.device}")
+    blob = blob.contiguous()
+    B = blob.shape[1]
+    H, W = pk["H"], pk["W"]
+    out = torch.empty((B, 3, H * W // LANE_N, LANE_N), dtype=torch.uint8,
+                      device=blob.device)
+    fn = _lib()
+    stream = torch.cuda.current_stream(blob.device).cuda_stream
+    err = fn(blob.data_ptr(), pk["rays"].data_ptr(), pk["words"].data_ptr(),
+             pk["scene"].data_ptr(), pk["of"].data_ptr(),
+             pk["oi"].data_ptr(), pk["pf"].data_ptr(), pk["pi"].data_ptr(),
+             out.data_ptr(),
+             B, H * W, pk["words"].shape[0], pk["Hg"], pk["Wg"],
+             pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
+             int(pk["no_clamp"]), LAMP_GREEN, LAMP_RED, stream)
+    if err != 0:
+        raise RuntimeError(f"blob render kernel launch failed: CUDA error "
+                           f"{err}")
+    render_frames_from_blob.launches += 1
+    return out
+
+
+render_frames_from_blob.launches = 0

@@ -1,13 +1,16 @@
-"""Carry a map and a state blob across from the JAX package.
+"""Carry a map and env states across from the JAX package.
 
 This system has no weights: what crosses between the two implementations
-is the compiled map and the env state. Both functions take plain numpy
+is the compiled map and the env state (as the fused rollout's blob or as
+the vectorized API's EnvState). Every function takes plain numpy
 (``np.asarray`` of the JAX arrays), so nothing here imports JAX.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
-from dtown_torch.types import MAP_FIELDS, MapArrays
+from dtown_torch.types import MAP_FIELDS, DynObjState, EnvState, MapArrays
 
 
 def maps_from_numpy(fields: dict) -> MapArrays:
@@ -17,6 +20,19 @@ def maps_from_numpy(fields: dict) -> MapArrays:
     if missing:
         raise ValueError(f"missing map fields: {missing}")
     return MapArrays(**{f: np.asarray(fields[f]) for f in MAP_FIELDS})
+
+
+def env_states_from_numpy(fields, device="cpu") -> EnvState:
+    """The port's batched EnvState from the JAX package's vmapped EnvState:
+    ``fields`` has the EnvState field names as attributes (and ``dyn`` the
+    DynObjState ones), each a [B, ...] array that np.asarray takes. The
+    PRNG key ``rng`` has no counterpart and is dropped."""
+    t = lambda a: torch.tensor(np.asarray(a), device=device)
+    dyn = DynObjState(**{f.name: t(getattr(fields.dyn, f.name))
+                         for f in dataclasses.fields(DynObjState)})
+    return EnvState(dyn=dyn, **{
+        f.name: t(getattr(fields, f.name))
+        for f in dataclasses.fields(EnvState) if f.name != "dyn"})
 
 
 def blob_from_numpy(a, device="cpu") -> torch.Tensor:

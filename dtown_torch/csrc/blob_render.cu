@@ -136,7 +136,7 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
   const int kind = byte & 0xF;
   const int angle_idx = (byte >> 4) & 0x3;
   float r, g, b;
-  tile::shade_pixel(kind, angle_idx, fx - ti, fz - tj, s.any_x != 0, aa,
+  tile::shade_pixel(kind, angle_idx, 0, fx - ti, fz - tj, s.any_x != 0, aa,
                     inv_fw, &r, &g, &b);
   const float shade = SC(S_SHADE);
   r = (in_grid ? r : SC(S_GR)) * shade;

@@ -118,12 +118,13 @@ __device__ __forceinline__ Marks tile_masks(int kind, int angle_idx, float u,
   return m;
 }
 
-// low 16 bits of the texel hash as float32 in [0, 65536), variant 0
-__device__ __forceinline__ float noise_h16f(float bu, float bv, int kind) {
+// low 16 bits of the texel hash as float32 in [0, 65536)
+__device__ __forceinline__ float noise_h16f(float bu, float bv, int kind,
+                                            int variant) {
   const int tx = min(static_cast<int>(bu * 128.0f), 127);
   const int ty = min(static_cast<int>(bv * 128.0f), 127);
-  uint32_t h = static_cast<uint32_t>(tx | (ty << 7)
-                                     | (((kind << 3) - kind) << 14));
+  uint32_t h = static_cast<uint32_t>(
+      tx | (ty << 7) | ((variant + ((kind << 3) - kind)) << 14));
   h = h + (h << 10);
   h = h ^ static_cast<uint32_t>(static_cast<int32_t>(h) >> 6);
   h = h + (h << 3);
@@ -133,11 +134,13 @@ __device__ __forceinline__ float noise_h16f(float bu, float bv, int kind) {
   return static_cast<float>(h & 0xFFFFu);
 }
 
-// tile color of texture variant 0: base, markings, hash noise
-__device__ __forceinline__ void shade_pixel(int kind, int angle_idx, float u,
-                                            float v, bool any_x, bool aa,
-                                            float inv_fw, float* r,
-                                            float* g, float* b) {
+// tile color: base, markings, hash noise; texture variant 0..3 (the
+// packed tile byte's top bits) with brightness 0.94 + 0.04 * variant,
+// which is exactly 0.94f for variant 0
+__device__ __forceinline__ void shade_pixel(int kind, int angle_idx,
+                                            int variant, float u, float v,
+                                            bool any_x, bool aa, float inv_fw,
+                                            float* r, float* g, float* b) {
   const Marks m = tile_masks(kind, angle_idx, u, v, any_x, aa, inv_fw);
   const bool is_road = kind >= STRAIGHT && kind <= ASPHALT_K;
   const bool is_grass = kind == GRASS_K;
@@ -163,13 +166,14 @@ __device__ __forceinline__ void shade_pixel(int kind, int angle_idx, float u,
       ch[ci] = m.white != 0.0f ? DT_F(wht[ci]) : o;
     }
   }
-  const float n = noise_h16f(m.bu, m.bv, kind) / 32768.0f - 1.0f;
+  const float n = noise_h16f(m.bu, m.bv, kind, variant) / 32768.0f - 1.0f;
   const float amp = is_grass ? DT_F(0.03) : (is_road ? DT_F(0.012)
                                                      : DT_F(0.015));
   const float noise = amp * n;
-  *r = ch[0] * DT_F(0.94) + noise;
-  *g = ch[1] * DT_F(0.94) + noise;
-  *b = ch[2] * DT_F(0.94) + noise;
+  const float bright = DT_F(0.94) + DT_F(0.04) * static_cast<float>(variant);
+  *r = ch[0] * bright + noise;
+  *g = ch[1] * bright + noise;
+  *b = ch[2] * bright + noise;
 }
 
 }  // namespace tile

@@ -18,22 +18,11 @@ import numpy as np
 import torch
 
 from dtown_torch import constants as C
+from dtown_torch import env
+from dtown_torch.device import resolve_device
 from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import blob_raster as br
 from dtown_torch.types import EnvConfig
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; CUDA must be present when asked for
-    (there is no silent fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "torch versions instead of the CUDA kernels")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def pack_blob(pos, angle, rng, robot_speed, wheel_dist):
@@ -83,38 +72,13 @@ def unpack_outputs(blob) -> StepOutput:
     )
 
 
-NTRY = 8  # bank candidates per spawn (env.py _bank_spawn)
-
-
-def bank_spawn(cfg, maps, idxs):
-    """Bank-spawn pick (dtown env._bank_spawn): of the NTRY candidate bank
-    indices per env ([B, NTRY], numpy ints), keep the first that clears
-    every active object by MIN_SPAWN_OBJ_DIST + its safety radius, or the
-    least-blocked one. Returns (pos [B, 3], angle [B]) float32 numpy."""
-    sp = np.asarray(maps.spawn_pos)
-    sa = np.asarray(maps.spawn_angle)
-    act = np.asarray(maps.obj_mask)
-    cand = sp[idxs]                                        # [B, NTRY, 3]
-    opos = np.asarray(maps.obj_pos)[act]
-    if len(opos):
-        d = np.linalg.norm(cand[:, :, None, :] - opos[None, None], axis=-1)
-        margin = (d - (C.MIN_SPAWN_OBJ_DIST
-                       + np.asarray(maps.obj_safety_rad)[act])).min(-1)
-    else:
-        margin = np.full(idxs.shape, np.inf, np.float32)
-    blocked = margin < 0.0
-    pick = np.where((~blocked).any(-1), np.argmax(~blocked, -1),
-                    np.argmax(margin, -1))
-    idx = idxs[np.arange(len(idxs)), pick]
-    return sp[idx], sa[idx]
-
-
 def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
                        device="cuda"):
     """(init_blob, fused_step, rollout) of the fused RGB rollout.
 
-    init_blob(generator) -> blob f32 [NF, B]: bank spawns drawn with the
-    torch.Generator (a CPU generator: the draw happens on the host).
+    init_blob(generator) -> blob f32 [NF, B]: bank spawns (env._bank_spawn
+    against the map's objects) drawn with the torch.Generator (a CPU
+    generator: the draw happens on the host).
     fused_step(blob, actions[B, 2]) -> (blob, StepOutput, obs u8
     [B, 3, S, 128]).
     rollout(blob, actions, n_iters) -> (blob, reward_sum, obs_checksum):
@@ -137,21 +101,21 @@ def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
             "maps with more than 48 objects need the row-fed render "
             "kernels, which are not ported yet")
     pk = br.pack_plan(cfg, plan, dev)
-    ok = np.asarray(maps.spawn_mask) & (
-        np.abs(np.asarray(maps.spawn_lane_deg)) < cfg.accept_start_angle_deg)
-    n_ok = max(int(ok.sum()), 1)
+    host = maps.numpy().to("cpu")
+    n_ok = env.bank_accept_count(cfg, host)
+    M = host.max_objects
 
     def init_blob(generator: torch.Generator):
-        idxs = torch.randint(0, n_ok, (num_envs, NTRY),
-                             generator=generator).numpy()
+        idxs = torch.randint(0, n_ok, (num_envs, env.NTRY),
+                             generator=generator)
         rng = torch.randint(0, 65536, (num_envs,), generator=generator)
-        pos, angle = bank_spawn(cfg, maps, idxs)
+        pos, angle = env._bank_spawn(
+            cfg, host, host.obj_pos.expand(num_envs, M, 3),
+            host.obj_mask.expand(num_envs, M), idxs)
         f = lambda v: torch.full((num_envs,), float(np.float32(v)),
                                  device=dev)
-        return pack_blob(
-            torch.as_tensor(pos, device=dev),
-            torch.as_tensor(angle, device=dev), rng.to(dev),
-            f(cfg.robot_speed), f(C.WHEEL_DIST))
+        return pack_blob(pos.to(dev), angle.to(dev), rng.to(dev),
+                         f(cfg.robot_speed), f(C.WHEEL_DIST))
 
     def fused_step(blob, actions):
         blob = sk.state_step(blob, actions, st)

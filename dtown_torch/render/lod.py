@@ -52,3 +52,14 @@ def prim_culld_base(cfg) -> np.ndarray:
     with np.errstate(divide="ignore"):
         base = np.where(r > 0.0, r / tq, np.inf)
     return base.astype(np.float32)
+
+
+def kind_culld_max(cfg) -> np.ndarray:
+    """[n_kinds] f32 max base cull distance over a kind's primitives: the
+    distance beyond which the whole object is invisible (the object-level
+    cull of the row-fed renders). +inf when LOD is off."""
+    base = prim_culld_base(cfg)
+    mask = meshlib.prim_tables()["mask"]
+    b = np.where(mask, base, 0.0)
+    out = b.max(axis=1)
+    return np.where(out > 0.0, out, np.inf).astype(np.float32)

@@ -150,9 +150,11 @@ def _noise_h16f(bu, bv, kind, variant):
     return (h & 0xFFFF).to(torch.float32)
 
 
-def _shade_pixels(kind, angle_idx, u, v, any_x, inv_fw=None):
-    """Tile color (r, g, b) of texture variant 0 (the no-randomization
-    path): base color, markings (coverage blend under AA), hash noise."""
+def _shade_pixels(kind, angle_idx, u, v, any_x, inv_fw=None, variant=None):
+    """Tile color (r, g, b): base color, markings (coverage blend under
+    AA), hash noise. ``variant`` is the per-pixel texture variant (int32,
+    0..3, from the packed tile byte) with brightness 0.94 + 0.04*variant;
+    None is variant 0, the blob render's no-randomization path."""
     yellow, white, is_road, is_grass, is_floor, bu, bv = _tile_masks(
         kind, angle_idx, u, v, any_x, inv_fw=inv_fw)
 
@@ -169,9 +171,13 @@ def _shade_pixels(kind, angle_idx, u, v, any_x, inv_fw=None):
         return torch.where(white, WHITE[ci], out)
 
     r_, g_, b_ = chan(0), chan(1), chan(2)
-    n = _noise_h16f(bu, bv, kind, 0) / 32768.0 - 1.0
+    n = _noise_h16f(bu, bv, kind, 0 if variant is None else variant) \
+        / 32768.0 - 1.0
     amp = torch.where(is_grass, 0.03,
                       torch.where(is_road, NOISE_AMP, 0.015)).to(u.dtype)
     noise = amp * n
-    bright = 0.94  # variant 0
+    if variant is None:
+        bright = 0.94
+    else:
+        bright = 0.94 + 0.04 * variant.to(u.dtype)
     return r_ * bright + noise, g_ * bright + noise, b_ * bright + noise

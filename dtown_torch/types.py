@@ -160,6 +160,13 @@ class MapArrays:
     spawn_angle: np.ndarray     # f32 [K]
     spawn_lane_deg: np.ndarray  # f32 [K]
     spawn_mask: np.ndarray      # bool [K]
+    # the numpy map a tensor copy was made from (None on the numpy map):
+    # static decisions read it on the host, never the device tensors
+    host: "MapArrays | None" = dataclasses.field(default=None, repr=False)
+
+    def numpy(self) -> "MapArrays":
+        """The numpy (host) copy of this map."""
+        return self if self.host is None else self.host
 
     @property
     def grid_shape(self):
@@ -175,7 +182,121 @@ class MapArrays:
 
     def to(self, device) -> "MapArrays":
         """Copy of the map with every field as a tensor on ``device``."""
-        return MapArrays(**{
-            f: torch.tensor(np.asarray(getattr(self, f)), device=device)
+        host = self.numpy()
+        return MapArrays(host=host, **{
+            f: torch.tensor(np.asarray(getattr(host, f)), device=device)
             for f in MAP_FIELDS
         })
+
+
+# --- Batched env state ------------------------------------------------------
+# Counterparts of dtown.types.DynObjState / LanePosition / EnvState /
+# StepOutput. The reference's states are per-env pytrees that jax.vmap
+# batches; here every field carries the batch as its leading dimension B.
+
+
+def _tensor_fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def tree_where(cond, a, b):
+    """Field-wise ``where(cond[B], a, b)`` over two states of one type
+    (nested dataclasses included)."""
+    out = {}
+    for name, x in _tensor_fields(a).items():
+        y = getattr(b, name)
+        if dataclasses.is_dataclass(x):
+            out[name] = tree_where(cond, x, y)
+        else:
+            out[name] = torch.where(
+                cond.reshape(cond.shape + (1,) * (x.dim() - 1)), x, y)
+    return type(a)(**out)
+
+
+@dataclasses.dataclass(frozen=True)
+class DynObjState:
+    """Dynamic-object state of every env, [B, M] over the object slots."""
+
+    pos: torch.Tensor        # f32 [B, M, 3]
+    angle: torch.Tensor      # f32 [B, M]
+    vel: torch.Tensor        # f32 [B, M]
+    walk_dist: torch.Tensor  # f32 [B, M]
+    wiggle: torch.Tensor     # f32 [B, M]
+    phase: torch.Tensor      # int32 [B, M] traffic-light phase
+    time: torch.Tensor       # f32 [B, M]
+
+    def replace(self, **kw) -> "DynObjState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class LanePosition:
+    """Lane-relative pose of every env (each [B])."""
+
+    dist: torch.Tensor
+    dot_dir: torch.Tensor
+    angle_deg: torch.Tensor
+    angle_rad: torch.Tensor
+    in_lane: torch.Tensor    # bool
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvState:
+    """Env state of a batch of B envs. The reference's ``rng`` key has no
+    counterpart: the port draws from a torch.Generator passed explicitly."""
+
+    pos: torch.Tensor            # f32 [B, 3]
+    angle: torch.Tensor          # f32 [B]
+    step_count: torch.Tensor     # int32 [B]
+    speed: torch.Tensor          # f32 [B]
+    wheel_vels: torch.Tensor     # f32 [B, 2]
+    last_action: torch.Tensor    # f32 [B, 2]
+    map_idx: torch.Tensor        # int32 [B]
+    robot_speed: torch.Tensor    # f32 [B]
+    cam_fov_y: torch.Tensor      # f32 [B] degrees
+    cam_height: torch.Tensor     # f32 [B]
+    cam_angle: torch.Tensor      # f32 [B] degrees
+    cam_fwd_dist: torch.Tensor   # f32 [B]
+    wheel_dist: torch.Tensor     # f32 [B]
+    light_dir: torch.Tensor      # f32 [B, 3]
+    light_ambient: torch.Tensor  # f32 [B]
+    ground_color: torch.Tensor   # f32 [B, 3]
+    horizon_color: torch.Tensor  # f32 [B, 3]
+    tex_seed: torch.Tensor       # int32 [B]
+    tex_variant: torch.Tensor    # int32 [B, H, W]
+    obj_visible: torch.Tensor    # bool [B, M]
+    dyn: DynObjState
+
+    def replace(self, **kw) -> "EnvState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def batch_size(self) -> int:
+        return self.pos.shape[0]
+
+    def to(self, device) -> "EnvState":
+        """Copy of the state on ``device``."""
+        f = {k: v.to(device) for k, v in _tensor_fields(self).items()
+             if k != "dyn"}
+        dyn = DynObjState(**{k: v.to(device)
+                             for k, v in _tensor_fields(self.dyn).items()})
+        return EnvState(dyn=dyn, **f)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOutput:
+    """Per-env step outputs (each [B]); ``obs`` is the batched observation
+    (uint8 [B, H, W, C] frames, or f32 [B, 11] state vectors)."""
+
+    obs: object
+    reward: torch.Tensor
+    done: torch.Tensor
+    lane_dist: torch.Tensor
+    lane_dot_dir: torch.Tensor
+    lane_angle_deg: torch.Tensor
+    in_lane: torch.Tensor
+    collision: torch.Tensor
+    timestamp: torch.Tensor
+
+    def replace(self, **kw) -> "StepOutput":
+        return dataclasses.replace(self, **kw)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of dtown_torch on one NVIDIA card: builds the CUDA kernels,
-holds each against its plain torch version, drives the fused RGB rollout
-of the default bench configuration and the vectorized step API
-(make_vec) on a static-scene map and a row-fed map, and prints what it
-measured.
+holds each against its plain torch version, drives the fused rollout
+(the default bench configuration, then moving NPCs, domain randomization,
+grayscale and state observations) and the vectorized step API (make_vec)
+on a static-scene map, a row-fed map and a domain-randomized map, and
+prints what it measured.
 
     python3 chip_smoke.py
 
@@ -11,33 +12,38 @@ Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi);
   2. build the three kernel sources from dtown_torch/csrc (one nvcc each,
      in parallel), printing registers and spill;
-  3. state kernel vs state_step_reference: loop_obstacles, 4096 envs,
-     16 steps, max_steps=5 so timeouts force auto-resets; discrete rows
-     equal, pose within 1e-5, reward within 1e-4;
-  4. the fused RGB rollout at the bench configuration (loop_obstacles, 4096 envs,
-     64x64 RGB, auto-reset, marking AA, obj_lod_px=2.0) on the card vs the
-     same rollout on the CPU at 64 envs 32x32, then 256 timed steps on the
-     card (CUDA events); launch counts must be > 0 for both kernels;
-  5. a torch.profiler trace of 32 steps: each kernel's device time per
-     launch and the device's idle share; fails if a kernel is missing;
-  6. blob render kernel vs render_frames_reference on the main path's
-     4096-env blob at 64x64; mean |diff| <= 0.01 and share of |diff| > 2
-     <= 1e-4 u8 counts;
-  7. the vector env on the card vs the CPU at 64 envs 32x32 from the same
-     states, 5 steps without auto-reset, on loop_obstacles (K3) and
-     town_dyn_duckiebots (K4, scripted bots): poses within 1e-5, reward
-     within 1e-4, discrete outputs equal, obs mean |diff| <= 0.01;
-  8. the step path at full width: make_vec(<map>, 4096, renderer="pallas")
-     (64x64 RGB, auto-reset, marking AA) on loop_obstacles and on bigtown,
-     256 steps timed with CUDA events after a warm-up; row_render_static
-     must launch on the first, row_render on the second; uint8
-     [4096, 64, 64, 3] frames with std > 5 and finite rewards; the split
-     between physics and render, and a torch.profiler trace of 32 steps
-     (kernel device time per launch, idle share);
-  9. K3 and K4 vs their plain versions on that run's 4096-env states, at
-     the blob render's bars;
- 10. the plain versions' times, and the least time the card could take
-     (bound) from this run's inputs.
+  3. the fused RGB rollout on loop_obstacles, 64 envs 32x32, 5 steps, on
+     the card vs on the CPU from the same blob;
+  4. the fused rollout in each configuration, each with its own launch
+     counts (4096 envs unless stated): the bench's default
+     (loop_obstacles, 64x64 RGB); (a) BASELINE config 4, udem1 with domain
+     randomization, 96x96 RGB; (b) town_dyn_duckiebots (both NPC kinds),
+     64x64 RGB; (c) bigtown_pedestrians with domain randomization and
+     grayscale, 64x64; (d) BASELINE config 2, small_loop grayscale 64x64,
+     256 envs; (e) state observations on loop_pedestrians (the state
+     kernel alone). Each first holds both kernels against their plain
+     versions for 12 steps through auto-resets (max_steps=5): discrete
+     rows equal, every row within 1e-5 (measured 0), frames max |diff| 0,
+     the DR rows redrawn and the NPCs re-placed at a reset; then times
+     the configuration as given (CUDA events, 256 or 64 steps), checks
+     its output, traces 32 steps with torch.profiler (device ms per
+     launch, idle share), times the plain versions on the timed run's
+     last blob, holds both kernels against those outputs (same bars) and
+     computes the bounds from that run's inputs;
+  5. the vector env on the card vs the CPU at 64 envs 32x32 from the
+     same states, 5 steps without auto-reset, on loop_obstacles (K3),
+     town_dyn_duckiebots (K4, scripted bots) and udem1 with domain
+     randomization (K4): poses within 1e-5, reward within 1e-4, discrete
+     outputs equal, obs mean |diff| <= 0.01;
+  6. the step path at full width: make_vec(<map>, 4096, renderer="pallas")
+     (64x64 RGB, auto-reset, marking AA) on loop_obstacles, on bigtown and
+     on udem1 with domain randomization, timed with CUDA events after a
+     warm-up; row_render_static must launch on the first, row_render on
+     the others; uint8 [4096, 64, 64, 3] frames with std > 5 and finite
+     rewards; the split between physics and render, and a torch.profiler
+     trace of 32 steps (kernel device time per launch, idle share);
+  7. K3 and K4 vs their plain versions on those runs' 4096-env states, at
+     the blob render's bars, the plain versions' times and the bounds.
 Needs CUDA; imports nothing of JAX.
 """
 import json
@@ -60,11 +66,22 @@ PEAK_INSTR = PEAK_F32 / 2
 # table load counts as one). Estimates: they set the operation bound.
 K1_OPS_ENV = 900          # state_kernel.cu without the SAT loop
 K1_OPS_OBJECT = 160       # SAT (4 axes x 8 projections) + proximity
+K1_OPS_LANE = 650         # one lane query: tile, 12-curve select, bisection
+K1_OPS_DUCKIE = 30        # a walking duckie's substep (sincos, walk)
+K1_OPS_BOT = 2 * K1_OPS_LANE + 110  # pure pursuit + differential drive
+K1_OPS_NPC_SAT = 50       # a live footprint (sincos, 4 corners)
+K1_OPS_HASH = 22          # one hashed uniform
+K1_OPS_RESET_DUCKIE = 4 * K1_OPS_HASH + 10   # fresh walk speed
+K1_OPS_RESET_DR = 16 * K1_OPS_HASH + 60      # the DR redraw
 K2_OPS_PIXEL = 150        # camera, ground hit, tile shading, sky, output
-K2_OPS_OBJECT = 8         # distance cull of one object
-K2_OPS_BOX_OBJECT = 32    # model-space ray setup of a box object
+K2_OPS_DR_PIXEL = 60      # DR: ray basis, 1/sqrt, ground divide, variant hash
+K2_OPS_BOX_PIXEL = 20     # a kept box object's ray in model space, inverses
 K2_OPS_BOX = 40           # one box primitive (slabs, shading, fold)
 K2_OPS_SPHERE = 32        # one sphere primitive
+# once per env (the kernel repeats them in every thread of the env's block)
+K2_OPS_OBJECT = 8         # distance, optional-bit and half-plane culls
+K2_OPS_BOX_ENV = 12       # a kept box object's eye in model space
+K2_OPS_NPC_OBJECT = 60    # an NPC's pose, wiggle, sincos, light rotation
 # row_render.cu (K3 and K4 share the pixel pass and the primitive test)
 K34_OPS_PIXEL = 175       # NDC ramps, ray normalize, ground, tile, sky, output
 K34_OPS_SLOT = 2          # cull flag test of one object slot
@@ -191,15 +208,16 @@ def read_counts():
             "row_render": rr.row_render.launches}
 
 
-def vec_card_vs_cpu(map_name, dev):
+def vec_card_vs_cpu(map_name, dev, **kw):
     """The vector env on the card vs on the CPU, 64 envs 32x32, from the
-    same CPU-built states, 5 steps without auto-reset."""
+    same CPU-built states, 5 steps without auto-reset; kw are further
+    EnvConfig fields."""
     import torch
     import dtown_torch
     from dtown_torch import env as tenv
 
     cfg = dtown_torch.EnvConfig(camera_width=32, camera_height=32,
-                                renderer="pallas", auto_reset=False)
+                                renderer="pallas", auto_reset=False, **kw)
     maps = dtown_torch.load_map(map_name)
     start = tenv.reset(cfg, maps.to("cpu"),
                        torch.Generator().manual_seed(3), 64)
@@ -223,25 +241,27 @@ def vec_card_vs_cpu(map_name, dev):
                for k in ("done", "collision", "in_lane")) and torch.equal(
         sg.step_count, sc.step_count)
     obs = float((og["obs"].int() - oc["obs"].int()).abs().float().mean())
-    print(f"vec env card vs cpu, {map_name} (64 envs 32x32, 5 steps): pose "
-          f"max |diff| {pose:.3g}, reward {rew:.3g}, discrete equal {same}, "
+    print(f"vec env card vs cpu, {map_name} {kw} (64 envs 32x32, 5 steps): "
+          f"pose max |diff| {pose:.3g}, reward {rew:.3g}, discrete equal "
+          f"{same}, "
           f"obs mean |diff| {obs:.3g}")
     if not (pose <= 1e-5 and rew <= 1e-4 and same and obs <= 0.01):
         raise AssertionError(f"card vector env disagrees with the CPU on "
                              f"{map_name}")
 
 
-def vec_main_path(map_name, dev, smi, n_steps=256):
+def vec_main_path(map_name, dev, smi, n_steps=256, **kw):
     """The step path at full width on one map: timed run, output checks,
-    physics/render split and a profiler trace. Returns a dict with the
-    launches of the timed run, the final states and the trace times."""
+    physics/render split and a profiler trace; kw are further EnvConfig
+    fields. Returns a dict with the launches of the timed run, the final
+    states and the trace times."""
     import torch
     import dtown_torch
     from dtown_torch import env as tenv
 
     B = 4096
     cfg, maps, v_reset, v_step = dtown_torch.make_vec(
-        map_name, B, renderer="pallas")
+        map_name, B, renderer="pallas", **kw)
     pk, facts = v_step.pack, tenv.host_facts(cfg, maps)
     states = v_reset(torch.Generator(device=dev).manual_seed(0))
     actions = torch.rand((B, 2), generator=torch.Generator(
@@ -250,7 +270,7 @@ def vec_main_path(map_name, dev, smi, n_steps=256):
     for _ in range(8):                                   # warm-up
         states, out = v_step(states, actions)
     torch.cuda.synchronize()
-    reset_counts()
+    reset_counts()  # counts of this path's run only
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     n_done = torch.zeros((), dtype=torch.int64, device=dev)
@@ -263,7 +283,7 @@ def vec_main_path(map_name, dev, smi, n_steps=256):
     launches = read_counts()
     ms = start.elapsed_time(end)
     rate = B * n_steps / (ms / 1e3)
-    print(f"vec step path, {map_name} {B} envs 64x64: {n_steps} steps in "
+    print(f"vec step path, {map_name} {kw} {B} envs 64x64: {n_steps} steps in "
           f"{ms:.2f} ms = {rate:.6g} env-steps/s ({ms / n_steps:.4f} "
           f"ms/step) on {smi}; auto-resets {int(n_done)}")
     print(f"launches in the timed run: {launches}")
@@ -347,8 +367,12 @@ def row_kernel_check(run, dev):
 
 
 def k2_ops(blob, pk, P):
-    """Operations the render does on this blob: per pixel the ground pass,
-    per env the objects and primitives its culls keep."""
+    """Operations the render needs on this blob: per pixel the ground pass
+    (and, under domain randomization, the per-pixel ray and variant hash)
+    and the ray tests of the objects and primitives its env's culls keep;
+    once per env each object's culls, a kept box's eye in model space, and
+    a moving NPC's pose and light rotation (culled or not). The kernel
+    repeats the per-env work in every thread; the bound counts it once."""
     import torch
     from dtown_torch.geometry import sincos
     from dtown_torch.ops import state_kernel as sk
@@ -358,22 +382,247 @@ def k2_ops(blob, pk, P):
     pf, pi = pk["pf"].cpu().double(), pk["pi"].cpu()
     b = blob.cpu()
     s, c = sincos(b[sk.F_ANGLE])
-    cam = float(pk["scene"][0])
-    eye0 = (b[sk.F_POS_X] + cam * c).double()
-    eye2 = (b[sk.F_POS_Z] - cam * s).double()
-    per_env = torch.full_like(eye0, float(K2_OPS_PIXEL))
+    s, c = s.double(), c.double()
+    cam = (b[pk["drb"] + sk.DR_CAMF].double() if pk["dr"]
+           else float(pk["scene"][0]))
+    eye0 = b[sk.F_POS_X].double() + cam * c
+    eye2 = b[sk.F_POS_Z].double() - cam * s
+    vis = b[pk["drb"] + sk.DR_OBJVIS].to(torch.int64) if pk["dr"] else None
+    per_pixel = torch.full_like(eye0, float(
+        K2_OPS_PIXEL + (K2_OPS_DR_PIXEL if pk["dr"] else 0)))
+    per_env = torch.zeros_like(eye0)
     for o in range(pk["n_objs"]):
-        d2 = (of[o, br.O_X] - eye0) ** 2 + (of[o, br.O_Z] - eye2) ** 2
+        npc, opt = int(oi[o, br.OI_NPC]), int(oi[o, br.OI_OPT])
+        if npc >= 0:
+            base = sk.F_NPC_BASE + sk.NPC_ROWS * npc
+            ox, oz = b[base].double(), b[base + 1].double()
+            per_env += K2_OPS_NPC_OBJECT
+        else:
+            ox, oz = of[o, br.O_X], of[o, br.O_Z]
+        d2 = (ox - eye0) ** 2 + (oz - eye2) ** 2
         act = d2 < of[o, br.O_CULL2]
+        if opt >= 0:
+            act = act & (((vis >> opt) & 1) > 0)
+        if int(oi[o, br.OI_PRED]):
+            act = act & ((ox - eye0) * c - (oz - eye2) * s
+                         > -of[o, br.O_RV])
         per_env += K2_OPS_OBJECT
         if oi[o, br.OI_BOX]:
-            per_env += act.double() * K2_OPS_BOX_OBJECT
+            per_env += act.double() * K2_OPS_BOX_ENV
+            per_pixel += act.double() * K2_OPS_BOX_PIXEL
         p0, n_p = int(oi[o, br.OI_P0]), int(oi[o, br.OI_NP])
         for j in range(p0, p0 + n_p):
-            gate = (d2 < pf[j, br.P_CD2]) if pi[j, br.PI_OWN] else act
+            gate = act & (d2 < pf[j, br.P_CD2]) if pi[j, br.PI_OWN] else act
             cost = K2_OPS_BOX if pi[j, br.PI_BOX] else K2_OPS_SPHERE
-            per_env += gate.double() * cost
-    return float(per_env.sum()) * P
+            per_pixel += gate.double() * cost
+    return float(per_pixel.sum()) * P + float(per_env.sum())
+
+
+def k1_ops(blob_out, st):
+    """Operations the state step did for this output blob: per env the
+    agent and one SAT test per object column; per NPC and substep its
+    state machine (two lane queries for a duckiebot); per reset env the
+    NPCs' re-placement and the DR redraw."""
+    from dtown_torch.ops import state_kernel as sk
+
+    B = blob_out.shape[1]
+    n_done = int(blob_out[sk.F_DONE].sum())
+    kinds = st["npc"][sk.NPC_KIND].tolist()[:st["n_npc"]]
+    n_duckie = sum(1 for k in kinds if int(k) == sk.NPC_DUCKIE)
+    n_bot = len(kinds) - n_duckie
+    per_env = (K1_OPS_ENV + K1_OPS_OBJECT * st["M"]
+               + st["frame_skip"] * (n_duckie * K1_OPS_DUCKIE
+                                     + n_bot * K1_OPS_BOT)
+               + K1_OPS_NPC_SAT * len(kinds))
+    per_reset = n_duckie * K1_OPS_RESET_DUCKIE + (
+        K1_OPS_RESET_DR + K1_OPS_HASH * st["n_opt"]
+        if st["domain_rand"] else 0)
+    return float(B * per_env + n_done * per_reset)
+
+
+def k1_bytes(st, nf, B):
+    tab = sum(st[k].numel() * st[k].element_size()
+              for k in ("words", "ct", "ot", "bank", "prm", "npc", "colmap",
+                        "drp"))
+    return 2 * nf * B * 4 + 2 * B * 4 + tab
+
+
+def k2_bytes(pk, B, P):
+    tab = sum(pk[k].numel() * pk[k].element_size()
+              for k in ("words", "scene", "of", "oi", "pf", "pi"))
+    rays = 0 if pk["dr"] else pk["rays"].numel() * 4
+    rows = 5 + pk["n_npc"] * 3 + (16 if pk["dr"] else 0)
+    return B * pk["C"] * P + rows * B * 4 + tab + rays
+
+
+def fused_phase(tag, map_name, dev, smi, B, S, n_timed, **kw):
+    """One configuration of the fused rollout on the card: the state
+    kernel and the blob render against their plain versions through
+    auto-resets (max_steps=5), then a timed run of the configuration as
+    given, a profiler window, the plain versions' times and the bounds.
+    Returns the kernels' rows of the JSON line ("bench" keeps the bare
+    kernel names)."""
+    import torch
+    import dtown_torch
+    from dtown_torch.ops import state_kernel as sk
+    from dtown_torch.render import blob_raster as br
+
+    state_only = kw.get("obs_type") == "state"
+    maps = dtown_torch.load_map(map_name)
+    # -- kernels vs plain versions through auto-resets
+    cfg_c = dtown_torch.EnvConfig(camera_width=S, camera_height=S,
+                                  **dict(kw, max_steps=5))
+    ib, fs, _ = dtown_torch.make_fused_rollout(cfg_c, maps, B, device=dev)
+    st, pk = fs.tables, fs.pack
+    blob = ib(torch.Generator(device=dev).manual_seed(11))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    drb = sk.dr_base(st["n_npc"])
+    discrete = (sk.F_DONE, sk.F_STEP, sk.F_RNG, sk.F_COLL, sk.F_INLANE,
+                sk.F_OINLANE)
+    k1_err = 0.0
+    n_done = redrawn = replaced = 0
+    for _ in range(12):
+        act = torch.rand((B, 2), generator=gen, device=dev) * 2.0 - 1.0
+        ref = sk.state_step_reference(blob, act[:, 0], act[:, 1], st)
+        out = sk.state_step(blob, act, st)
+        torch.cuda.synchronize()
+        for f in discrete:
+            if not torch.equal(out[f], ref[f]):
+                raise AssertionError(f"{tag}: state kernel row {f} differs "
+                                     f"from the plain version")
+        k1_err = max(k1_err, float((out - ref).abs().max()))
+        done = out[sk.F_DONE] > 0.5
+        n_done += int(done.sum())
+        if st["domain_rand"]:
+            redrawn += int((out[drb + sk.DR_FOV][done]
+                            != blob[drb + sk.DR_FOV][done]).sum())
+        for i, npc in enumerate(st["npcs"]):
+            row = out[sk.F_NPC_BASE + sk.NPC_ROWS * i][done]
+            replaced += int((row == float(npc["x0"])).sum())
+        blob = out
+    print(f"{tag}: state kernel vs plain, 12 steps x {B} envs: {n_done} "
+          f"auto-resets, DR rows redrawn in {redrawn} envs, NPCs "
+          f"re-placed {replaced} times; max |diff| {k1_err:.3g}")
+    if n_done <= 0 or (st["domain_rand"] and redrawn <= 0) or (
+            st["n_npc"] and replaced <= 0):
+        raise AssertionError(f"{tag}: no auto-reset, redraw or re-placement")
+    if k1_err > 1e-5:
+        # the pose bar; the rows agree bit for bit unless a float64 FMA
+        # emulation of the plain version meets a double-rounding tie
+        raise AssertionError(f"{tag}: state kernel outside its bar")
+    k2_err = None
+    if not state_only:
+        img_k = br.render_frames_from_blob(blob, pk)
+        img_r = br.render_frames_reference(blob, pk)
+        diff = (img_k.int() - img_r.int()).abs()
+        k2_err = float(diff.max())
+        mean = float(diff.float().mean())
+        del img_k, img_r, diff
+        print(f"{tag}: blob render vs plain on that blob, {B} envs {S}x{S}"
+              f" C={pk['C']}: max |diff| {k2_err:.0f}, mean {mean:.3g}")
+        if k2_err > 0:
+            raise AssertionError(f"{tag}: blob render kernel differs from "
+                                 f"its plain version")
+    del fs, ib
+    # -- the configuration as given, timed
+    cfg = dtown_torch.EnvConfig(camera_width=S, camera_height=S, **kw)
+    init_blob, fused_step, rollout = dtown_torch.make_fused_rollout(
+        cfg, maps, B, device=dev)
+    st, pk = fused_step.tables, fused_step.pack
+    blob = init_blob(torch.Generator(device=dev).manual_seed(1))
+    actions = torch.rand((B, 2), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    blob, _, _ = rollout(blob, actions, 8)               # warm-up
+    torch.cuda.synchronize()
+    reset_counts()  # counts of this path's run only
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    blob, _, _ = rollout(blob, actions, n_timed)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end)
+    rate = B * n_timed / (ms / 1e3)
+    _, out, obs = fused_step(blob, actions)
+    torch.cuda.synchronize()
+    print(f"{tag}: fused rollout {map_name} {kw} {B} envs {S}x{S}: "
+          f"{n_timed} steps in {ms:.2f} ms = {rate:.6g} env-steps/s "
+          f"({ms / n_timed:.4f} ms/step) on {smi}; launches {launches}")
+    want = (B, 11) if state_only else (B, pk["C"], S * S // 128, 128)
+    if not (tuple(obs.shape) == want and bool(torch.isfinite(blob).all())
+            and bool(torch.isfinite(out.reward).all())
+            and float(obs.float().std()) > (0.1 if state_only else 5.0)):
+        raise AssertionError(f"{tag}: rollout output malformed")
+    if launches["state_step"] <= 0 or (
+            not state_only and launches["blob_render"] <= 0):
+        raise AssertionError(f"{tag}: a kernel of the path never launched")
+    names = ["state_step_kernel"] + ([] if state_only
+                                     else ["blob_render_kernel"])
+    dev_ms, busy, win = profile_window(lambda: rollout(blob, actions, 32),
+                                       names)
+    print(f"{tag}: profiler, 32 steps: window {win:.3f} ms, kernels busy "
+          f"{busy:.3f} ms, device idle share {1.0 - busy / win:.4f}; "
+          f"device ms/launch {dev_ms}")
+    if set(names) - dev_ms.keys():
+        raise AssertionError(f"{tag}: no device time for "
+                             f"{set(names) - dev_ms.keys()}")
+    # -- the kernels against the plain versions it times, on the timed
+    # run's last blob; then the bounds
+    act0, act1 = actions[:, 0].contiguous(), actions[:, 1].contiguous()
+    k1_plain, blob2 = cuda_ms(
+        lambda: sk.state_step_reference(blob, act0, act1, st), 3)
+    out = sk.state_step(blob, actions, st)
+    torch.cuda.synchronize()
+    for f in discrete:
+        if not torch.equal(out[f], blob2[f]):
+            raise AssertionError(f"{tag}: state kernel row {f} differs from "
+                                 f"the plain version on the timed blob")
+    k1_last = float((out - blob2).abs().max())
+    print(f"{tag}: state kernel vs plain on the timed run's last blob: max "
+          f"|diff| {k1_last:.3g}")
+    if k1_last > 1e-5:
+        raise AssertionError(f"{tag}: state kernel outside its bar on the "
+                             f"timed blob")
+    k1_err = max(k1_err, k1_last)
+    del out
+    k1_b = bound(k1_bytes(st, blob.shape[0], B), k1_ops(blob2, st))
+    sfx = "" if tag == "bench" else f"[{tag}]"
+    rows = [dict(name="state_step" + sfx, route="cuda",
+                 source="dtown_torch/csrc/state_kernel.cu",
+                 replaces="dtown/ops/state_kernel.py:203",
+                 launches=launches["state_step"], max_abs_err=k1_err,
+                 ms=dev_ms["state_step_kernel"], plain_ms=k1_plain,
+                 bound_ms=k1_b[0], bound_by=k1_b[1], library_ms=None)]
+    print(f"{tag}: state kernel {dev_ms['state_step_kernel']:.5f} ms/launch"
+          f" (plain {k1_plain:.4f} ms), bound {k1_b[0]:.6f} ms by "
+          f"{k1_b[1]}")
+    if not state_only:
+        P = S * S
+        k2_plain, img_r = cuda_ms(
+            lambda: br.render_frames_reference(blob, pk), 2)
+        img_k = br.render_frames_from_blob(blob, pk)
+        k2_last = float((img_k.int() - img_r.int()).abs().max())
+        del img_k, img_r
+        print(f"{tag}: blob render vs plain on the timed run's last blob: "
+              f"max |diff| {k2_last:.0f}")
+        if k2_last > 0:
+            raise AssertionError(f"{tag}: blob render kernel differs from "
+                                 f"its plain version on the timed blob")
+        k2_err = max(k2_err, k2_last)
+        k2_b = bound(k2_bytes(pk, B, P), k2_ops(blob, pk, P))
+        rows.append(dict(name="blob_render" + sfx, route="cuda",
+                         source="dtown_torch/csrc/blob_render.cu",
+                         replaces="dtown/render/blob_raster.py:574",
+                         launches=launches["blob_render"],
+                         max_abs_err=k2_err, ms=dev_ms["blob_render_kernel"],
+                         plain_ms=k2_plain, bound_ms=k2_b[0],
+                         bound_by=k2_b[1], library_ms=None))
+        print(f"{tag}: blob render {dev_ms['blob_render_kernel']:.5f} "
+              f"ms/launch (plain {k2_plain:.4f} ms), bound {k2_b[0]:.6f} "
+              f"ms by {k2_b[1]}")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -384,8 +633,6 @@ def main():
         return 1
     import dtown_torch
     from dtown_torch import _build
-    from dtown_torch.ops import state_kernel as sk
-    from dtown_torch.render import blob_raster as br
 
     t_start = time.time()
     smi = nvidia_smi_line()
@@ -405,52 +652,17 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    maps = dtown_torch.load_map("loop_obstacles")
-    B = 4096
-    gen = torch.Generator().manual_seed(0)
-
-    # ---- state kernel vs its plain version -----------------------------------
-    cfg_s = dtown_torch.EnvConfig(max_steps=5)
-    st = sk.device_tables(cfg_s, sk.build_tables(cfg_s, maps), dev)
-    init_blob, _, _ = dtown_torch.make_fused_rollout(cfg_s, maps, B,
-                                                     device=dev)
-    blob = init_blob(gen)
-    discrete = (sk.F_DONE, sk.F_STEP, sk.F_RNG, sk.F_COLL, sk.F_INLANE,
-                sk.F_OINLANE)
-    pose = (sk.F_POS_X, sk.F_POS_Y, sk.F_POS_Z, sk.F_ANGLE)
-    k1_err = pose_err = rew_err = 0.0
-    k1_rows = []
-    n_done = 0
-    for _ in range(16):
-        act = torch.rand((B, 2), generator=gen).mul_(2.0).sub_(1.0).to(dev)
-        ref = sk.state_step_reference(blob, act[:, 0], act[:, 1], st)
-        out = sk.state_step(blob, act, st)
-        torch.cuda.synchronize()
-        for f in discrete:
-            if not torch.equal(out[f], ref[f]):
-                raise AssertionError(f"state kernel row {f} differs from "
-                                     f"the plain version")
-        d = (out - ref).abs()
-        if float(d.max()) > k1_err:
-            k1_err = float(d.max())
-            k1_rows = torch.nonzero(d.amax(1)).flatten().tolist()
-        pose_err = max(pose_err, float(d[list(pose)].max()))
-        rew_err = max(rew_err, float(d[sk.F_REWARD].max()))
-        n_done += int(out[sk.F_DONE].sum())
-        blob = out
-    print(f"state kernel vs plain: 16 steps x {B} envs, {n_done} auto-"
-          f"resets; max |diff| all rows {k1_err:.3g} (rows that differ: "
-          f"{k1_rows}), pose {pose_err:.3g}, reward {rew_err:.3g}")
-    if not (pose_err <= 1e-5 and rew_err <= 1e-4 and n_done > 0):
-        raise AssertionError("state kernel outside its bars")
-
     # ---- fused rollout: card vs CPU on a small input -----------------------------
+    maps = dtown_torch.load_map("loop_obstacles")
     cfg_small = dtown_torch.EnvConfig(camera_width=32, camera_height=32)
     outs = {}
-    for d_ in (dev, "cpu"):
+    start_blob = None
+    for d_ in ("cpu", dev):
         ib, fs, ro = dtown_torch.make_fused_rollout(cfg_small, maps, 64,
                                                     device=d_)
-        b_ = ib(torch.Generator().manual_seed(7))
+        if start_blob is None:
+            start_blob = ib(torch.Generator().manual_seed(7))
+        b_ = start_blob.to(d_)
         a_ = torch.full((64, 2), 0.3, device=d_)
         a_[:, 1] = 0.4
         b_, r_, o_ = ro(b_, a_, 4)
@@ -466,138 +678,44 @@ def main():
             and float(obs_diff) <= 0.01):
         raise AssertionError("card rollout disagrees with the CPU rollout")
 
-    # ---- the main path: fused RGB rollout at the bench configuration ------------
-    cfg = dtown_torch.EnvConfig(camera_width=64, camera_height=64)
-    init_blob, fused_step, rollout = dtown_torch.make_fused_rollout(
-        cfg, maps, B, device=dev)
-    blob = init_blob(torch.Generator().manual_seed(1))
-    actions = torch.rand((B, 2), generator=gen).to(dev)
-    blob, _, _ = rollout(blob, actions, 8)              # warm-up
-    torch.cuda.synchronize()
-    n_steps = 256
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    blob, rsum, osum = rollout(blob, actions, n_steps)
-    end.record()
-    torch.cuda.synchronize()
-    launches = read_counts()
-    ms = start.elapsed_time(end)
-    rate = B * n_steps / (ms / 1e3)
-    _, out, obs = fused_step(blob, actions)
-    torch.cuda.synchronize()
-    print(f"fused RGB rollout, loop_obstacles {B} envs 64x64: {n_steps} "
-          f"steps in {ms:.2f} ms = {rate:.6g} env-steps/s "
-          f"({ms / n_steps:.4f} ms/step) on {smi}")
-    print(f"launches in the timed run: {launches}")
-    if min(launches["state_step"], launches["blob_render"]) <= 0:
-        raise AssertionError("a kernel of the main path never launched")
-    if not (obs.shape == (B, 3, 32, 128) and obs.dtype == torch.uint8
-            and bool(torch.isfinite(blob).all())
-            and bool(torch.isfinite(out.reward).all())
-            and float(obs.float().std()) > 5.0):
-        raise AssertionError("rollout output malformed")
-    print(f"last step: reward sum {float(rsum):.6g}, obs checksum "
-          f"{int(osum)}, done {int(out.done.sum())}")
-
-    # ---- device trace of a short window of the main path ----------------------------
-    dev_ms, busy_ms, win_ms = profile_window(
-        lambda: rollout(blob, actions, 32),
-        ["state_step_kernel", "blob_render_kernel"])
-    print(f"profiler, 32 steps: window {win_ms:.3f} ms, kernels busy "
-          f"{busy_ms:.3f} ms, device idle share "
-          f"{1.0 - busy_ms / win_ms:.4f}; device ms/launch {dev_ms}")
-    missing = {"state_step_kernel", "blob_render_kernel"} - dev_ms.keys()
-    if missing:
-        raise AssertionError(f"no device time in the trace for {missing}")
-    k1_ms = dev_ms["state_step_kernel"]
-    k2_ms = dev_ms["blob_render_kernel"]
-
-    # ---- blob render kernel vs its plain version on the main path's blob ----------
-    pk = br.pack_plan(cfg, br.build_render_plan(cfg, maps), dev)
-    img_k = br.render_frames_from_blob(blob, pk)
-    k2_plain, img_r = cuda_ms(lambda: br.render_frames_reference(blob, pk), 3)
-    diff = (img_k.int() - img_r.int()).abs()
-    k2_mean = float(diff.float().mean())
-    k2_frac = float((diff > 2).float().mean())
-    k2_err = float(diff.max())
-    del img_k, img_r, diff
-    print(f"blob render vs plain: {B} envs 64x64, mean |diff| {k2_mean:.3g},"
-          f" share |diff|>2 {k2_frac:.3g}, max {k2_err:.0f}")
-    if not (k2_mean <= 0.01 and k2_frac <= 1e-4):
-        raise AssertionError("blob render kernel outside its bars")
-
-    # ---- plain versions' times and bounds -------------------------------------------
-    st = sk.device_tables(cfg, sk.build_tables(cfg, maps), dev)
-    act0, act1 = actions[:, 0].contiguous(), actions[:, 1].contiguous()
-    k1_plain, _ = cuda_ms(
-        lambda: sk.state_step_reference(blob, act0, act1, st), 5)
-    nf = blob.shape[0]
-    tab_bytes = sum(st[k].numel() * st[k].element_size()
-                    for k in ("words", "ct", "ot", "bank", "prm"))
-    k1_bytes = 2 * nf * B * 4 + 2 * B * 4 + tab_bytes
-    k1_ops = B * (K1_OPS_ENV + K1_OPS_OBJECT * st["M"])
-    P = 64 * 64
-    pk_bytes = sum(pk[k].numel() * pk[k].element_size()
-                   for k in ("rays", "words", "scene", "of", "oi", "pf",
-                             "pi"))
-    k2_bytes = B * 3 * P + 5 * B * 4 + pk_bytes
-    k2_opc = k2_ops(blob, pk, P)
-
-    k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    k2_bound, k2_by = bound(k2_bytes, k2_opc)
-    print(f"state kernel: {k1_ms:.5f} ms/launch (plain {k1_plain:.4f} ms), "
-          f"bound {k1_bound:.6f} ms by {k1_by} ({k1_bytes} B, "
-          f"{k1_ops:.4g} ops)")
-    print(f"blob render: {k2_ms:.5f} ms/launch (plain {k2_plain:.4f} ms), "
-          f"bound {k2_bound:.6f} ms by {k2_by} ({k2_bytes} B, "
-          f"{k2_opc:.4g} ops)")
-    del blob, st, pk
+    # ---- the fused rollout in each configuration, the bench's first --------------
+    kernels = []
+    for tag, map_name, B, S, n_t, kw in (
+            ("bench", "loop_obstacles", 4096, 64, 256, {}),
+            ("baseline4", "udem1", 4096, 96, 256, dict(domain_rand=True)),
+            ("npc", "town_dyn_duckiebots", 4096, 64, 64, {}),
+            ("npc_dr_gray", "bigtown_pedestrians", 4096, 64, 64,
+             dict(domain_rand=True, grayscale=True)),
+            ("baseline2", "small_loop", 256, 64, 64, dict(grayscale=True)),
+            ("state", "loop_pedestrians", 4096, 64, 256,
+             dict(obs_type="state"))):
+        kernels += fused_phase(tag, map_name, dev, smi, B, S, n_t, **kw)
 
     # ---- the step path: vector env on the card vs the CPU ---------------------------
-    for name in ("loop_obstacles", "town_dyn_duckiebots"):
-        vec_card_vs_cpu(name, dev)
+    for name, kw in (("loop_obstacles", {}), ("town_dyn_duckiebots", {}),
+                     ("udem1", dict(domain_rand=True))):
+        vec_card_vs_cpu(name, dev, **kw)
 
-    # ---- the step path at full width: K3 map, then K4 map ----------------------------
-    row = {}
-    for name, kname in (("loop_obstacles", "row_render_static"),
-                        ("bigtown", "row_render")):
-        run = vec_main_path(name, dev, smi)
+    # ---- the step path at full width: K3 map, K4 map, K4 under DR --------------------
+    replaces = {"row_render_static": "dtown/render/pallas_raster.py:861",
+                "row_render": "dtown/render/pallas_raster.py:326"}
+    for name, kname, n_t, kw in (
+            ("loop_obstacles", "row_render_static", 128, {}),
+            ("bigtown", "row_render", 128, {}),
+            ("udem1", "row_render", 64, dict(domain_rand=True))):
+        run = vec_main_path(name, dev, smi, n_steps=n_t, **kw)
         if run["launches"][kname] <= 0:
             raise AssertionError(f"{kname} never launched on {name}")
         err, plain_ms, b_ms, b_by = row_kernel_check(run, dev)
-        row[kname] = dict(launches=run["launches"][kname], max_abs_err=err,
-                          ms=run["ms"], plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, map=name)
+        kernels.append(dict(
+            name=kname + ("[udem1_dr]" if kw else ""), route="cuda",
+            source="dtown_torch/csrc/row_render.cu", replaces=replaces[kname],
+            launches=run["launches"][kname], max_abs_err=err, ms=run["ms"],
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
         del run
         torch.cuda.empty_cache()
     print(f"total wall {time.time() - t_start:.1f} s")
-
-    kernels = [
-        dict(name="state_step", route="cuda",
-             source="dtown_torch/csrc/state_kernel.cu",
-             replaces="dtown/ops/state_kernel.py:203",
-             launches=launches["state_step"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
-             bound_by=k1_by, library_ms=None),
-        dict(name="blob_render", route="cuda",
-             source="dtown_torch/csrc/blob_render.cu",
-             replaces="dtown/render/blob_raster.py:574",
-             launches=launches["blob_render"], max_abs_err=k2_err,
-             ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
-             bound_by=k2_by, library_ms=None),
-        dict(name="row_render_static", route="cuda",
-             source="dtown_torch/csrc/row_render.cu",
-             replaces="dtown/render/pallas_raster.py:861",
-             **{k: v for k, v in row["row_render_static"].items()
-                if k != "map"}, library_ms=None),
-        dict(name="row_render", route="cuda",
-             source="dtown_torch/csrc/row_render.cu",
-             replaces="dtown/render/pallas_raster.py:326",
-             **{k: v for k, v in row["row_render"].items() if k != "map"},
-             library_ms=None),
-    ]
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """dtown_torch: the Duckietown environment engine on PyTorch and CUDA.
 
-The port of the JAX package ``dtown`` to an NVIDIA H100: the fused RGB
-rollout (state step + blob render) and the vectorized step API
+The port of the JAX package ``dtown`` to an NVIDIA H100: the fused
+rollout (state step + blob render; moving NPCs, domain randomization,
+RGB, grayscale or state observations) and the vectorized step API
 (``make_vec``: batched physics + the row-fed render) run through
 hand-written CUDA kernels (csrc/), each with a plain torch version that
 the CPU runs.

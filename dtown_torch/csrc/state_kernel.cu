@@ -1,15 +1,19 @@
 // Fused state step for Hopper (sm_90a): one thread per env.
 //
 // Replaces the Pallas TPU kernel dtown/ops/state_kernel.py::
-// make_state_kernel (launched by state_step_pallas). The plain version is
-// dtown_torch/ops/state_kernel.py::state_step_reference; this file keeps
+// make_state_kernel (launched by state_step_pallas): the agent, the moving
+// NPCs (walking duckies, pure-pursuit duckiebots), collision against live
+// NPC footprints and the optional objects of a domain-randomized env, and
+// the auto-reset with NPC re-placement and the DR redraw. The plain version
+// is dtown_torch/ops/state_kernel.py::state_step_reference; this file keeps
 // its float32 operation order step for step.
 //
-// What bounds it on the card: memory. Per env the step reads and writes
-// one blob column (NF=32 floats each way) plus two actions, and does a few
-// thousand scalar operations; at 4096 envs that is ~1 MB of traffic and a
-// few hundred thousand threads' worth of arithmetic, so launch latency and
-// the latency of the dependent table loads dominate, not bandwidth.
+// What bounds it on the card: latency, then operations. Per env the step
+// reads and writes one blob column (32-64 floats each way) plus two
+// actions; a static map costs a few thousand scalar operations an env, and
+// each duckiebot adds two more lane queries per substep. At 4096 envs that
+// is ~1-2 MB of traffic and a few million operations, so launch latency
+// and the dependent table loads dominate.
 //
 // Design:
 //  * The field-major blob [NF, B] is kept: thread e reads blob[f*B + e],
@@ -21,6 +25,12 @@
 //    (18 KB for loop_obstacles' curve table) and stay in L1/L2.
 //  * 128 threads a block, so 4096 envs fill 32 blocks (the TPU kernel's
 //    512-env programs would leave most of the 132 SMs idle).
+//  * NPC state lives in small per-thread arrays (MAX_NPC = 8); the NPC
+//    descriptors come from a float table [8, n_npc] and each object column
+//    carries its NPC index and optional-object bit (colmap), so one binary
+//    serves every map. The agent and the duckiebots share one lane_query.
+//  * The DR redraw's multiply-adds are fmaf: the reference, as XLA builds
+//    it, contracts them (the plain version emulates the FMA in float64).
 //  * The integer hash computes +, << and ^ in uint32_t (defined
 //    wraparound) and each >> as an arithmetic shift of the int32 value,
 //    which is the reference's int32 semantics.
@@ -42,6 +52,18 @@ constexpr int F_ACT1 = 12, F_REWARD = 13, F_DONE = 14, F_LDIST = 15;
 constexpr int F_LDOT = 16, F_LDEG = 17, F_INLANE = 18, F_COLL = 19;
 constexpr int F_TIME = 20, F_ENVID = 21, F_OLDIST = 22, F_OLDOT = 23;
 constexpr int F_OLDEG = 24, F_OINLANE = 25, F_MAPID = 26, N_OUT = 27;
+constexpr int F_NPC_BASE = 27, NPC_ROWS = 5;
+// DR rows, relative to dr_base
+constexpr int DR_FOV = 0, DR_CAMH = 1, DR_CAMA = 2, DR_CAMF = 3, DR_LX = 4;
+constexpr int DR_LY = 5, DR_LZ = 6, DR_AMB = 7, DR_GR = 8, DR_HR = 11;
+constexpr int DR_TEXSEED = 14, DR_OBJVIS = 15, DR_ROWS = 16;
+// (lo, span) pairs of the DR redraw (state_kernel.py DR_TAGS order)
+constexpr int D_RS = 0, D_WD = 1, D_FOV = 2, D_CAMH = 3, D_CAMA = 4;
+constexpr int D_CAMF = 5, D_AMB = 6, D_G = 7, D_H = 10;
+// NPC table rows (state_kernel.py NPC_*)
+constexpr int NPC_KIND = 0, NPC_X0 = 1, NPC_Z0 = 2, NPC_A0 = 3, NPC_HW = 4;
+constexpr int NPC_HL = 5, NPC_RAD = 6, NPC_WALK = 7, NPC_DUCKIE = 0;
+constexpr int MAX_NPC = 8;
 
 // curve table rows
 constexpr int N_CURVES = 12, CT_CPS = 0, CT_CHX = 144, CT_CHZ = 156;
@@ -60,13 +82,18 @@ constexpr int P_HL = 9, P_TS_INV = 10, P_AGENT_RAD = 11;
 constexpr int BEZIER_ITERS = 8;
 constexpr int THREADS = 128;
 constexpr int SALT_SPAWN = 0x20000000;
+constexpr int SALT_U01 = 0x10000000, TAG_STEP = 0x3779B9;
+constexpr int SALT_DUCKIE = 0x30000000, NPC_STEP = 0x611C9;
 
 struct Tables {
   const int* words;
   const float* ct;
   const float* ot;
   const float* bank;
-  int n_tiles, Hg, Wg, M;
+  const float* npc;    // [8, n_npc]
+  const int* colmap;   // [2, M]: NPC index, optional bit (-1: none)
+  const float* drp;    // DR (lo, span) pairs
+  int n_tiles, Hg, Wg, M, n_npc, dr, n_opt;
   float ts_inv;
 };
 
@@ -89,6 +116,37 @@ __device__ __forceinline__ int32_t hash_u32(int32_t a, int32_t b,
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+// per-(env, episode, tag) uniform in [0, 1) from the integer hash
+__device__ __forceinline__ float u01(int32_t rng, int32_t env, int tag) {
+  const int32_t hv = hash_u32(rng, env, SALT_U01 + tag * TAG_STEP);
+  return static_cast<float>(hv & 0xFFFF) / 65536.0f;
+}
+
+// one differential-drive substep (simulator.py::_update_pos)
+__device__ __forceinline__ void drive(float* x, float* z, float* a,
+                                      float s_a, float c_a, float vl,
+                                      float vr, float wheel_dist, float dt) {
+  const float dir_x = c_a, dir_z = -s_a;
+  const bool straight = vl == vr;
+  const float npx_s = *x + dt * vl * dir_x;
+  const float npz_s = *z + dt * vl * dir_z;
+  const float denom = straight ? 1.0f : vl - vr;
+  const float w = (vr - vl) / wheel_dist;
+  const float r_icc = wheel_dist * (vl + vr) / (2.0f * denom);
+  const float rot = w * dt;
+  const float cx = *x + r_icc * s_a;
+  const float cz = *z + r_icc * c_a;
+  float s_r, c_r;
+  dt_sincos(rot, &s_r, &c_r);
+  const float dx = *x - cx;
+  const float dz = *z - cz;
+  const float npx_a = cx + dx * c_r + dz * s_r;
+  const float npz_a = cz + dz * c_r - dx * s_r;
+  *x = straight ? npx_s : npx_a;
+  *z = straight ? npz_s : npz_a;
+  *a = *a + (straight ? 0.0f : rot);
 }
 
 // Drivability of the tile under (px, pz); also returns the clipped tile id.
@@ -182,16 +240,21 @@ state_step_kernel(const float* __restrict__ blob,
   const float hw = __ldg(prm + P_HW);
   const float hl = __ldg(prm + P_HL);
   auto row = [&](int f) { return blob[f * B + e]; };
+  const int n_npc = t.n_npc;
+  const int drb = F_NPC_BASE + NPC_ROWS * n_npc;
 
   float pos_x = row(F_POS_X), pos_y = row(F_POS_Y), pos_z = row(F_POS_Z);
   float angle = row(F_ANGLE);
   const float act0 = act[2 * e], act1 = act[2 * e + 1];
-  const float robot_speed = row(F_ROBOT_SPEED);
-  const float wheel_dist = row(F_WHEEL_DIST);
+  float robot_speed = row(F_ROBOT_SPEED);
+  float wheel_dist = row(F_WHEEL_DIST);
   float step_cnt = row(F_STEP);
   const float rng_ctr = row(F_RNG);
   const float env_id = row(F_ENVID);
   const float map_row = row(F_MAPID);
+  const int32_t rng_i = static_cast<int32_t>(rng_ctr);
+  const int32_t env_i = static_cast<int32_t>(env_id);
+  const int objvis = t.dr ? static_cast<int>(row(drb + DR_OBJVIS)) : 0;
 
   // ---- wheel model ----------------------------------------------------
   float u_l, u_r;
@@ -216,25 +279,8 @@ state_step_kernel(const float* __restrict__ blob,
   for (int fs = 0; fs < frame_skip; ++fs) {
     float s_a, c_a;
     dt_sincos(angle, &s_a, &c_a);
-    const float dir_x = c_a, dir_z = -s_a;
-    const bool straight = vl == vr;
-    const float npx_s = pos_x + dt * vl * dir_x;
-    const float npz_s = pos_z + dt * vl * dir_z;
-    const float denom = straight ? 1.0f : vl - vr;
-    const float w = (vr - vl) / wheel_dist;
-    const float r_icc = wheel_dist * (vl + vr) / (2.0f * denom);
-    const float rot = w * dt;
-    const float cx = pos_x + r_icc * s_a;
-    const float cz = pos_z + r_icc * c_a;
-    float s_r, c_r;
-    dt_sincos(rot, &s_r, &c_r);
-    const float dx = pos_x - cx;
-    const float dz = pos_z - cz;
-    const float npx_a = cx + dx * c_r + dz * s_r;
-    const float npz_a = cz + dz * c_r - dx * s_r;
-    const float new_x = straight ? npx_s : npx_a;
-    const float new_z = straight ? npz_s : npz_a;
-    const float new_angle = angle + (straight ? 0.0f : rot);
+    float new_x = pos_x, new_z = pos_z, new_angle = angle;
+    drive(&new_x, &new_z, &new_angle, s_a, c_a, vl, vr, wheel_dist, dt);
     const float ddx = new_x - pos_x;
     const float ddz = new_z - pos_z;
     speed = sqrtf(ddx * ddx + ddz * ddz) * __ldg(prm + P_INV_DT);
@@ -264,6 +310,62 @@ state_step_kernel(const float* __restrict__ blob,
                                &tid_tmp);
   const bool all_driv = d_c2 & d_l & d_r & d_f;
 
+  // ---- moving-NPC state machines (objects.py semantics) -----------------
+  float npc_x[MAX_NPC], npc_z[MAX_NPC], npc_a[MAX_NPC], npc_w[MAX_NPC];
+  float npc_v[MAX_NPC];
+  auto N = [&](int r, int i) { return __ldg(t.npc + r * n_npc + i); };
+  for (int i = 0; i < n_npc; ++i) {
+    const int base = F_NPC_BASE + NPC_ROWS * i;
+    npc_x[i] = row(base + 0);
+    npc_z[i] = row(base + 1);
+    npc_a[i] = row(base + 2);
+    npc_w[i] = row(base + 3);
+    npc_v[i] = row(base + 4);
+  }
+  for (int fs = 0; fs < (n_npc > 0 ? frame_skip : 0); ++fs) {
+    for (int i = 0; i < n_npc; ++i) {
+      float nx = npc_x[i], nz = npc_z[i], na = npc_a[i], nw = npc_w[i];
+      const float nv = npc_v[i];
+      float s_n, c_n;
+      dt_sincos(na, &s_n, &c_n);
+      if (static_cast<int>(N(NPC_KIND, i)) == NPC_DUCKIE) {
+        // walk along the heading, reverse after walk_dist
+        const float step_len = nv * dt;
+        nx = nx + step_len * c_n;
+        nz = nz - step_len * s_n;
+        nw = nw + step_len;
+        const bool rev = nw > N(NPC_WALK, i);
+        na = rev ? na + DT_F(3.14159265358979323846) : na;
+        nw = rev ? 0.0f : nw;
+      } else {
+        // scripted duckiebot: pure pursuit on two chained lane queries
+        const float bdx = c_n, bdz = -s_n;
+        int tq;
+        const bool drv1 = drivable_at(t, nx, nz, &tq);
+        float cpx, cpz, ctx, ctz, bd1;
+        lane_query(t, tq, nx, nz, bdx, bdz, &cpx, &cpz, &ctx, &ctz, &bd1);
+        const float fpx = cpx + DT_F(0.30) * ctx;
+        const float fpz = cpz + DT_F(0.30) * ctz;
+        const bool drv2 = drivable_at(t, fpx, fpz, &tq);
+        float gpx, gpz, gtx, gtz, bd2;
+        lane_query(t, tq, fpx, fpz, bdx, bdz, &gpx, &gpz, &gtx, &gtz, &bd2);
+        const float pvx = gpx - nx;
+        const float pvz = gpz - nz;
+        const float pinv = 1.0f / sqrtf(fmaxf(pvx * pvx + pvz * pvz, 1e-18f));
+        const float dotr = (s_n * pvx + c_n * pvz) * pinv;
+        float steering = DT_F(0.15) * (-dotr);
+        const bool ok = drv1 & (bd1 > 0.0f) & drv2 & (bd2 > 0.0f);
+        if (!ok) steering = 0.0f;
+        drive(&nx, &nz, &na, s_n, c_n, nv - steering, nv + steering,
+              DT_F(0.102), dt);
+      }
+      npc_x[i] = nx;
+      npc_z[i] = nz;
+      npc_a[i] = na;
+      npc_w[i] = nw;
+    }
+  }
+
   // ---- SAT collision + proximity ----------------------------------------
   bool collided = false;
   float prox_static = 1e30f;
@@ -279,8 +381,55 @@ state_step_kernel(const float* __restrict__ blob,
     const float agent_rad = __ldg(prm + P_AGENT_RAD);
     for (int m = 0; m < t.M; ++m) {
       auto O = [&](int r) { return __ldg(t.ot + r * t.M + m); };
-      const float axs[4] = {dir_x, right_x, O(OT_NX + 0), O(OT_NX + 2)};
-      const float azs[4] = {dir_z, right_z, O(OT_NX + 1), O(OT_NX + 3)};
+      const int ni = __ldg(t.colmap + m);
+      const int kbit = __ldg(t.colmap + t.M + m);
+      float ocx[4], ocz[4], axs[4], azs[4], o_px, o_pz, o_rad;
+      bool o_act, o_dyn;
+      axs[0] = dir_x;
+      azs[0] = dir_z;
+      axs[1] = right_x;
+      azs[1] = right_z;
+      if (ni >= 0) {
+        // live NPC footprint (objects.py::dynamic_corners)
+        const float nx = npc_x[ni], nz = npc_z[ni];
+        float s_n, c_n;
+        dt_sincos(npc_a[ni], &s_n, &c_n);
+        const float fx_n = c_n, fz_n = -s_n, rx_n = s_n, rz_n = c_n;
+        const float hw_n = N(NPC_HW, ni), hl_n = N(NPC_HL, ni);
+        ocx[0] = nx - hl_n * fx_n - hw_n * rx_n;
+        ocx[1] = nx + hl_n * fx_n - hw_n * rx_n;
+        ocx[2] = nx + hl_n * fx_n + hw_n * rx_n;
+        ocx[3] = nx - hl_n * fx_n + hw_n * rx_n;
+        ocz[0] = nz - hl_n * fz_n - hw_n * rz_n;
+        ocz[1] = nz + hl_n * fz_n - hw_n * rz_n;
+        ocz[2] = nz + hl_n * fz_n + hw_n * rz_n;
+        ocz[3] = nz - hl_n * fz_n + hw_n * rz_n;
+        axs[2] = rx_n;
+        azs[2] = rz_n;
+        axs[3] = fx_n;
+        azs[3] = fz_n;
+        o_px = nx;
+        o_pz = nz;
+        o_rad = N(NPC_RAD, ni);
+        o_act = true;
+        o_dyn = true;
+      } else {
+        for (int i = 0; i < 4; ++i) {
+          ocx[i] = O(OT_CX + 2 * i);
+          ocz[i] = O(OT_CX + 2 * i + 1);
+        }
+        axs[2] = O(OT_NX + 0);
+        azs[2] = O(OT_NX + 1);
+        axs[3] = O(OT_NX + 2);
+        azs[3] = O(OT_NX + 3);
+        o_px = O(OT_PX);
+        o_pz = O(OT_PZ);
+        o_rad = O(OT_RAD);
+        o_act = O(OT_ACT) > 0.5f;
+        o_dyn = O(OT_DYN) > 0.5f;
+        // optional-object visibility bit of this env (domain rand only)
+        if (kbit >= 0) o_act = o_act & (((objvis >> kbit) & 1) > 0);
+      }
       bool separated = false;
       for (int a = 0; a < 4; ++a) {
         const float ax = axs[a], az = azs[a];
@@ -289,19 +438,17 @@ state_step_kernel(const float* __restrict__ blob,
           const float pa = agx[i] * ax + agz[i] * az;
           amin = i == 0 ? pa : fminf(amin, pa);
           amax = i == 0 ? pa : fmaxf(amax, pa);
-          const float pb = O(OT_CX + 2 * i) * ax + O(OT_CX + 2 * i + 1) * az;
+          const float pb = ocx[i] * ax + ocz[i] * az;
           bmin = i == 0 ? pb : fminf(bmin, pb);
           bmax = i == 0 ? pb : fmaxf(bmax, pb);
         }
         separated = separated | (amax < bmin) | (bmax < amin);
       }
-      const bool o_act = O(OT_ACT) > 0.5f;
-      const bool o_dyn = O(OT_DYN) > 0.5f;
       collided = collided | (!separated & o_act);
-      const float dxo = O(OT_PX) - acx;
-      const float dzo = O(OT_PZ) - acz;
+      const float dxo = o_px - acx;
+      const float dzo = o_pz - acz;
       const float dist_o = sqrtf(dxo * dxo + dzo * dzo);
-      const float score = dist_o - agent_rad - O(OT_RAD);
+      const float score = dist_o - agent_rad - o_rad;
       if (o_act & !o_dyn) prox_static = fminf(prox_static, score);
       if (o_act & o_dyn) prox_dyn = prox_dyn + fminf(score, 0.0f);
     }
@@ -336,9 +483,11 @@ state_step_kernel(const float* __restrict__ blob,
   const float in_lane_f = in_lane ? 1.0f : 0.0f;
   float o_ldist = signed_dist, o_ldot = dot_dir, o_ldeg = lane_deg;
   float o_inlane = in_lane_f;
+  float drr[DR_ROWS];
+  if (t.dr)
+    for (int k = 0; k < DR_ROWS; ++k) drr[k] = row(drb + k);
   if (auto_reset && done) {
-    const int32_t h = hash_u32(static_cast<int32_t>(rng_ctr),
-                               static_cast<int32_t>(env_id), SALT_SPAWN);
+    const int32_t h = hash_u32(rng_i, env_i, SALT_SPAWN);
     const int sidx = h % max(n_ok, 1);
     auto S = [&](int r) { return __ldg(t.bank + r * BANK_K + sidx); };
     pos_x = S(BK_X);
@@ -353,6 +502,61 @@ state_step_kernel(const float* __restrict__ blob,
     o_ldot = S(BK_LDOT);
     o_ldeg = S(BK_LDEG);
     o_inlane = S(BK_INLANE);
+    // NPCs re-place at their initial poses; a duckie's walk speed is
+    // redrawn ~N(0.02, 0.005) (Irwin-Hall sum of 4 hashed uniforms)
+    for (int i = 0; i < n_npc; ++i) {
+      npc_x[i] = N(NPC_X0, i);
+      npc_z[i] = N(NPC_Z0, i);
+      npc_a[i] = N(NPC_A0, i);
+      npc_w[i] = 0.0f;
+      if (static_cast<int>(N(NPC_KIND, i)) == NPC_DUCKIE) {
+        float usum = 0.0f;
+        for (int j = 0; j < 4; ++j) {
+          const int32_t hv = hash_u32(
+              rng_i, env_i, SALT_DUCKIE + j * TAG_STEP + i * NPC_STEP);
+          usum = usum + static_cast<float>(hv & 0xFFFF) / 65536.0f;
+        }
+        const float ih_scale = static_cast<float>(1.7320508f * 0.005f);
+        npc_v[i] = fmaxf(fmaf(usum - 2.0f, ih_scale, DT_F(0.02)), 0.001f);
+      }
+    }
+    if (t.dr) {
+      // redraw every randomization row of a fresh episode
+      auto rdw = [&](int d, int tag) {
+        return fmaf(u01(rng_i, env_i, tag), __ldg(t.drp + 2 * d + 1),
+                    __ldg(t.drp + 2 * d));
+      };
+      robot_speed = rdw(D_RS, 1);
+      wheel_dist = rdw(D_WD, 2);
+      drr[DR_FOV] = rdw(D_FOV, 3);
+      drr[DR_CAMH] = rdw(D_CAMH, 4);
+      drr[DR_CAMA] = rdw(D_CAMA, 5);
+      drr[DR_CAMF] = rdw(D_CAMF, 6);
+      const float lx_n = fmaf(u01(rng_i, env_i, 7), DT_F(0.8), -1.0f);
+      const float lz_n = fmaf(u01(rng_i, env_i, 8), DT_F(0.8), -1.0f);
+      const float linv = 1.0f / sqrtf(lx_n * lx_n + 1.0f + lz_n * lz_n);
+      drr[DR_LX] = lx_n * linv;
+      drr[DR_LY] = -linv;
+      drr[DR_LZ] = lz_n * linv;
+      drr[DR_AMB] = rdw(D_AMB, 9);
+      for (int c = 0; c < 3; ++c) {
+        drr[DR_GR + c] = rdw(D_G + c, 10 + c);
+        drr[DR_HR + c] = rdw(D_H + c, 13 + c);
+      }
+      drr[DR_TEXSEED] = floorf(u01(rng_i, env_i, 16) * 8388608.0f);
+      float vis = 0.0f;
+      for (int k = 0; k < t.n_opt; ++k)
+        vis = vis + (u01(rng_i, env_i, 17 + k) < 0.5f
+                         ? static_cast<float>(1 << k) : 0.0f);
+      drr[DR_OBJVIS] = vis;
+    }
+  }
+  if (auto_reset && t.dr) {
+    // the reference clips the colour rows of every env, reset or not
+    for (int c = 0; c < 3; ++c) {
+      drr[DR_GR + c] = clampf(drr[DR_GR + c], 0.0f, 1.0f);
+      drr[DR_HR + c] = clampf(drr[DR_HR + c], 0.0f, 1.0f);
+    }
   }
 
   const float rows[N_OUT] = {
@@ -362,7 +566,20 @@ state_step_kernel(const float* __restrict__ blob,
       step_cnt * dt, env_id, o_ldist, o_ldot, o_ldeg, o_inlane, map_row};
 #pragma unroll
   for (int f = 0; f < N_OUT; ++f) out[f * B + e] = rows[f];
-  for (int f = N_OUT; f < nf; ++f) out[f * B + e] = 0.0f;
+  for (int i = 0; i < n_npc; ++i) {
+    const int base = F_NPC_BASE + NPC_ROWS * i;
+    out[(base + 0) * B + e] = npc_x[i];
+    out[(base + 1) * B + e] = npc_z[i];
+    out[(base + 2) * B + e] = npc_a[i];
+    out[(base + 3) * B + e] = npc_w[i];
+    out[(base + 4) * B + e] = npc_v[i];
+  }
+  int f_end = drb;
+  if (t.dr) {
+    for (int k = 0; k < DR_ROWS; ++k) out[(drb + k) * B + e] = drr[k];
+    f_end = drb + DR_ROWS;
+  }
+  for (int f = f_end; f < nf; ++f) out[f * B + e] = 0.0f;
 }
 
 }  // namespace
@@ -370,19 +587,28 @@ state_step_kernel(const float* __restrict__ blob,
 extern "C" int dtown_state_step(const float* blob, const float* act,
                                 float* out, const int* words,
                                 const float* ct, const float* ot,
-                                const float* bank, const float* prm, int B,
-                                int nf, int n_tiles, int Hg, int Wg, int M,
-                                int n_ok, int frame_skip, int use_wm,
-                                int auto_reset, void* stream) {
+                                const float* bank, const float* prm,
+                                const float* npc, const int* colmap,
+                                const float* drp, int B, int nf,
+                                int n_tiles, int Hg, int Wg, int M, int n_ok,
+                                int frame_skip, int use_wm, int auto_reset,
+                                int n_npc, int dr, int n_opt, void* stream) {
+  if (n_npc > MAX_NPC) return static_cast<int>(cudaErrorInvalidValue);
   Tables t;
   t.words = words;
   t.ct = ct;
   t.ot = ot;
   t.bank = bank;
+  t.npc = npc;
+  t.colmap = colmap;
+  t.drp = drp;
   t.n_tiles = n_tiles;
   t.Hg = Hg;
   t.Wg = Wg;
   t.M = M;
+  t.n_npc = n_npc;
+  t.dr = dr;
+  t.n_opt = n_opt;
   t.ts_inv = 0.0f;  // read from prm inside the kernel
   const int blocks = (B + THREADS - 1) / THREADS;
   state_step_kernel<<<blocks, THREADS, 0,

@@ -6,18 +6,21 @@ vmaps per-env functions; here every function takes a batch of B envs
 (EnvState fields carry B as their leading dimension). Random draws come
 from an explicit torch.Generator on the state's device; each draw is
 split from its deterministic core (``_bank_spawn`` takes the candidate
-indices, ``objects.init_dyn_state`` the normal noise) so tests can feed
-both implementations the same draws.
+indices, ``objects.init_dyn_state`` the normal noise,
+``randomization.draw_from_uniforms`` the domain-randomization uniforms)
+so tests can feed both implementations the same draws.
 
 Static branches (objects present, NPCs present) and the spawn bank's
 accepted prefix are decided once on the host from the numpy map
 (``host_facts``), never from device tensors: a step makes no host sync.
 
-Scope of this slice: single maps, bank spawns, no domain randomization;
+Scope: single maps, bank spawns, with or without domain randomization;
 RGB observations through the row-fed render kernels
 (render/row_raster.py, ``renderer="pallas"``) or the 11-column state
-vector. The options not ported yet raise NotImplementedError from one
-gate, ``check_scope``, which ``make_vec_env`` runs once.
+vector. The options not ported yet raise NotImplementedError from
+``check_scope`` (shared with the fused rollout) and, for RGB
+observations, ``check_row_render_scope``; ``make_vec_env`` runs both
+once.
 """
 from __future__ import annotations
 
@@ -40,14 +43,13 @@ NTRY = 8  # bank candidates per spawn
 
 
 def check_scope(cfg: EnvConfig, maps: MapArrays):
-    """Raise NotImplementedError for the options this port does not have
-    yet, naming the missing piece. ``maps`` is one map; a list of maps or
-    a stacked map is a multimap."""
+    """Raise NotImplementedError for the options neither the step path nor
+    the fused rollout has yet, naming the missing piece, and ValueError for
+    an unknown obs_type. ``maps`` is one map; a list of maps or a stacked
+    map is a multimap."""
     if isinstance(maps, (list, tuple)) or np.asarray(
             maps.numpy().tile_kind).ndim == 3:
         raise NotImplementedError("stacked multimaps are not ported yet")
-    if cfg.domain_rand:
-        raise NotImplementedError("domain randomization is not ported yet")
     if cfg.spawn_mode != "bank":
         raise NotImplementedError(
             f"spawn_mode={cfg.spawn_mode!r} (rejection sampling, "
@@ -55,21 +57,25 @@ def check_scope(cfg: EnvConfig, maps: MapArrays):
     if cfg.start_pose is not None or cfg.user_tile_start is not None:
         raise NotImplementedError(
             "start_pose / user_tile_start overrides are not ported yet")
-    if cfg.obs_type == "rgb":
-        if cfg.renderer != "pallas":
-            raise NotImplementedError(
-                f"renderer={cfg.renderer!r}: the XLA ray-caster "
-                "(render/raster.py) is not ported yet; pass "
-                "renderer='pallas' for the row-fed CUDA render kernels")
-        if cfg.distortion:
-            raise NotImplementedError(
-                "fisheye distortion (the _ndc_planes ray table) is not "
-                "ported yet")
-        if cfg.mesh_fidelity == "triangles":
-            raise NotImplementedError(
-                "triangle-mesh objects are not ported yet")
-    elif cfg.obs_type != "state":
+    if cfg.obs_type not in ("rgb", "state"):
         raise ValueError(f"unknown obs_type {cfg.obs_type}")
+
+
+def check_row_render_scope(cfg: EnvConfig):
+    """Raise NotImplementedError for the render options the step path's
+    row-fed kernels do not have yet."""
+    if cfg.renderer != "pallas":
+        raise NotImplementedError(
+            f"renderer={cfg.renderer!r}: the XLA ray-caster "
+            "(render/raster.py) is not ported yet; pass "
+            "renderer='pallas' for the row-fed CUDA render kernels")
+    if cfg.distortion:
+        raise NotImplementedError(
+            "fisheye distortion (the _ndc_planes ray table) is not "
+            "ported yet")
+    if cfg.mesh_fidelity == "triangles":
+        raise NotImplementedError(
+            "triangle-mesh objects are not ported yet")
 
 
 def active_objects(maps, state):
@@ -126,12 +132,17 @@ def _bank_spawn(cfg, maps, dyn_pos, obj_active, idxs):
     return maps.spawn_pos[idx], maps.spawn_angle[idx]
 
 
-def reset_from_draws(cfg, maps, idxs, duckie_noise) -> EnvState:
+def reset_from_draws(cfg, maps, idxs, duckie_noise, rand=None) -> EnvState:
     """Fresh episode states from the reset's draws: bank candidate indices
-    idxs [B, NTRY] and standard-normal duckie speed noise [B, M]."""
+    idxs [B, NTRY], standard-normal duckie speed noise [B, M] and the
+    randomization fields ``rand`` (randomization.draw or
+    draw_from_uniforms; None gives the nominal ones, without domain
+    randomization)."""
     B = idxs.shape[0]
     dev = maps.obj_pos.device
-    rand = randomization.draw(cfg, B, maps.grid_shape, maps.max_objects, dev)
+    if rand is None:
+        rand = randomization.draw(cfg, B, maps.grid_shape, maps.max_objects,
+                                  dev)
     dyn = objlib.init_dyn_state(maps, B, noise=duckie_noise)
     obj_active = maps.obj_mask & (~maps.obj_optional | rand["obj_visible"])
     pos, angle = _bank_spawn(cfg, maps, dyn.pos, obj_active, idxs)
@@ -159,7 +170,9 @@ def reset(cfg, maps, generator: torch.Generator, num_envs: int,
                          generator=generator, device=dev)
     noise = torch.randn((num_envs, maps.max_objects), generator=generator,
                         device=dev)
-    return reset_from_draws(cfg, maps, idxs, noise)
+    rand = randomization.draw(cfg, num_envs, maps.grid_shape,
+                              maps.max_objects, dev, generator=generator)
+    return reset_from_draws(cfg, maps, idxs, noise, rand)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +332,8 @@ def make_vec_env(cfg: EnvConfig, maps: MapArrays, num_envs: int,
     pack = None
     if cfg.obs_type == "rgb":
         from dtown_torch.render import row_raster
+
+        check_row_render_scope(cfg)
 
         pack = row_raster.pack_row_scene(cfg, maps_d)
     batch = {}

@@ -64,6 +64,18 @@ def div(a, b):
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
+def fma32(a, b, c):
+    """a * b + c of float32 values, rounded once to float32, as an FMA
+    rounds it: computed in float64 and rounded at the end. Exact whenever
+    the product (at most 48 significant bits) and the sum fit float64's 53
+    bits, which holds for the draws this port feeds it; otherwise only a
+    double-rounding tie could differ by one float32 ulp. The reference's
+    XLA build contracts such multiply-adds into FMAs, and the CUDA kernels
+    call fmaf at the same places. Any argument may be a Python float."""
+    d = lambda v: v.double() if isinstance(v, torch.Tensor) else float(v)
+    return (d(a) * d(b) + d(c)).float()
+
+
 def get_dir_vec(angle):
     """Heading unit vector (cos a, 0, -sin a), [..., 3]."""
     s, c = sincos(angle)

@@ -1,14 +1,21 @@
-"""Fused RGB rollout: blob-state steps driven by the two CUDA kernels.
+"""Fused rollout: blob-state steps driven by the two CUDA kernels.
 
 Counterpart of dtown/ops/fused_env.py. The rollout carries the transposed
-state blob [NF, B]; each step is one state step (ops/state_kernel.py) and
-one blob render (render/blob_raster.py), with no other work between them:
+state blob [nf, B] (ops/state_kernel.py; nf = nf_for(n_npc, domain_rand));
+each step is one state step and, for camera observations, one blob render
+(render/blob_raster.py), with no other work between them:
 
-    blob --state_step--> blob' --render_frames_from_blob--> u8 [B, 3, S, 128]
+    blob --state_step--> blob' --render_frames_from_blob--> u8 [B, C, S, 128]
+
+State observations (``obs_type="state"``) read the 11 columns straight
+from the blob's rows, so that path runs the state kernel alone. EnvState
+<-> blob conversion (``pack_blob``, ``update_states_from_blob``) happens
+once at the rollout's boundary.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where the plain torch versions run instead of the kernels.
-Scope of this slice: RGB observations on a static single map.
+Scope: single maps, with moving NPCs, domain randomization, RGB or
+grayscale frames, or state vectors.
 """
 from __future__ import annotations
 
@@ -19,30 +26,73 @@ import torch
 
 from dtown_torch import constants as C
 from dtown_torch import env
+from dtown_torch import randomization
 from dtown_torch.device import resolve_device
+from dtown_torch.geometry import get_lane_pos2
 from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import blob_raster as br
 from dtown_torch.types import EnvConfig
 
+_DEG2RAD = float(np.float32(np.pi / 180.0))
 
-def pack_blob(pos, angle, rng, robot_speed, wheel_dist):
-    """Freshly reset envs -> blob f32 [NF, B] on pos's device.
 
-    pos [B, 3], angle [B], rng [B] (integer counter; stored mod 65536),
-    robot_speed/wheel_dist [B]. Speed, wheel velocities, step count and
-    map index start at zero; F_ENVID is arange(B).
-    """
-    B = pos.shape[0]
+def _opt_bits(maps):
+    """Slots of the map's optional objects in mask-column order: bit k of
+    the DR_OBJVIS row is the visibility of slot _opt_bits(maps)[k] (the
+    state kernel's opt_cols and the render plan's opt_bit)."""
+    host = maps.numpy()
+    optional = np.asarray(host.obj_optional)
+    return [int(s) for s in np.nonzero(np.asarray(host.obj_mask))[0]
+            if bool(optional[int(s)])]
+
+
+def pack_blob(states, maps, domain_rand, rng):
+    """Batched EnvState -> blob f32 [nf, B] on the states' device.
+
+    rng: int tensor [B], the per-env counter of the kernel's hash draws
+    (stored mod 65536). The moving NPCs' rows come from states.dyn and,
+    with domain_rand, the randomization rows from the states' draws,
+    optional-object visibility packed as the DR_OBJVIS bitmask."""
+    B = states.pos.shape[0]
+    dev = states.pos.device
     f32 = torch.float32
-    rows = torch.zeros((sk.NF, B), dtype=f32, device=pos.device)
-    rows[sk.F_POS_X] = pos[:, 0]
-    rows[sk.F_POS_Y] = pos[:, 1]
-    rows[sk.F_POS_Z] = pos[:, 2]
-    rows[sk.F_ANGLE] = angle
+    npcs = sk.moving_npcs(maps.numpy())
+    rows = torch.zeros((sk.nf_for(len(npcs), domain_rand), B), dtype=f32,
+                       device=dev)
+    rows[sk.F_POS_X] = states.pos[:, 0]
+    rows[sk.F_POS_Y] = states.pos[:, 1]
+    rows[sk.F_POS_Z] = states.pos[:, 2]
+    rows[sk.F_ANGLE] = states.angle
+    rows[sk.F_SPEED] = states.speed
+    rows[sk.F_WVL] = states.wheel_vels[:, 0]
+    rows[sk.F_WVR] = states.wheel_vels[:, 1]
+    rows[sk.F_STEP] = states.step_count.to(f32)
     rows[sk.F_RNG] = (rng.to(torch.int64) % 65536).to(f32)
-    rows[sk.F_ROBOT_SPEED] = robot_speed
-    rows[sk.F_WHEEL_DIST] = wheel_dist
-    rows[sk.F_ENVID] = torch.arange(B, dtype=f32, device=pos.device)
+    rows[sk.F_ROBOT_SPEED] = states.robot_speed
+    rows[sk.F_WHEEL_DIST] = states.wheel_dist
+    rows[sk.F_ENVID] = torch.arange(B, dtype=f32, device=dev)
+    rows[sk.F_MAPID] = states.map_idx.to(f32)
+    for i, npc in enumerate(npcs):
+        base = sk.F_NPC_BASE + sk.NPC_ROWS * i
+        s = npc["slot"]
+        rows[base:base + sk.NPC_ROWS] = torch.stack([
+            states.dyn.pos[:, s, 0], states.dyn.pos[:, s, 2],
+            states.dyn.angle[:, s], states.dyn.walk_dist[:, s],
+            states.dyn.vel[:, s]])
+    if domain_rand:
+        drb = sk.dr_base(len(npcs))
+        vis = torch.zeros((B,), dtype=f32, device=dev)
+        for k, s in enumerate(_opt_bits(maps)):
+            vis = vis + torch.where(states.obj_visible[:, s],
+                                    float(1 << k), 0.0)
+        rows[drb:drb + sk.DR_ROWS] = torch.stack([
+            states.cam_fov_y, states.cam_height, states.cam_angle,
+            states.cam_fwd_dist, states.light_dir[:, 0],
+            states.light_dir[:, 1], states.light_dir[:, 2],
+            states.light_ambient, states.ground_color[:, 0],
+            states.ground_color[:, 1], states.ground_color[:, 2],
+            states.horizon_color[:, 0], states.horizon_color[:, 1],
+            states.horizon_color[:, 2], states.tex_seed.to(f32), vis])
     return rows
 
 
@@ -72,54 +122,146 @@ def unpack_outputs(blob) -> StepOutput:
     )
 
 
+def update_states_from_blob(states, blob, maps, domain_rand):
+    """Write the blob's rows back into a batched EnvState: the pose rows,
+    the moving NPCs' rows into states.dyn (time and traffic-light phase
+    rebuilt from the env's step time) and, with domain_rand, the
+    randomization rows (texture variants re-hashed from the seed)."""
+    npcs = sk.moving_npcs(maps.numpy())
+    if domain_rand:
+        drb = sk.dr_base(len(npcs))
+        r = lambda k: blob[drb + k]
+        seed = r(sk.DR_TEXSEED).to(torch.int32)
+        vis = states.obj_visible.clone()
+        for k, s in enumerate(_opt_bits(maps)):
+            vis[:, s] = (torch.floor(r(sk.DR_OBJVIS) / float(1 << k))
+                         .to(torch.int32) & 1) > 0
+        states = states.replace(
+            cam_fov_y=r(sk.DR_FOV), cam_height=r(sk.DR_CAMH),
+            cam_angle=r(sk.DR_CAMA), cam_fwd_dist=r(sk.DR_CAMF),
+            light_dir=torch.stack([r(sk.DR_LX), r(sk.DR_LY), r(sk.DR_LZ)],
+                                  -1),
+            light_ambient=r(sk.DR_AMB),
+            ground_color=torch.stack(
+                [r(sk.DR_GR), r(sk.DR_GG), r(sk.DR_GB)], -1),
+            horizon_color=torch.stack(
+                [r(sk.DR_HR), r(sk.DR_HG), r(sk.DR_HB)], -1),
+            tex_seed=seed,
+            tex_variant=randomization.tex_variants(
+                seed, states.tex_variant.shape[-2:]),
+            robot_speed=blob[sk.F_ROBOT_SPEED],
+            wheel_dist=blob[sk.F_WHEEL_DIST],
+            obj_visible=vis)
+    dyn = states.dyn
+    if npcs:
+        pos, ang = dyn.pos.clone(), dyn.angle.clone()
+        walk, vel = dyn.walk_dist.clone(), dyn.vel.clone()
+        for i, npc in enumerate(npcs):
+            base = sk.F_NPC_BASE + sk.NPC_ROWS * i
+            s = npc["slot"]
+            pos[:, s, 0] = blob[base + 0]
+            pos[:, s, 2] = blob[base + 1]
+            ang[:, s] = blob[base + 2]
+            walk[:, s] = blob[base + 3]
+            vel[:, s] = blob[base + 4]
+        t_env = blob[sk.F_TIME][:, None]
+        period = torch.full((), C.TRAFFICLIGHT_PERIOD, device=blob.device)
+        dyn = dyn.replace(
+            pos=pos, angle=ang, walk_dist=walk, vel=vel,
+            time=t_env.expand_as(dyn.time).clone(),
+            phase=(torch.floor(t_env / period).to(torch.int32) % 2)
+            .expand_as(dyn.phase).clone())
+    return states.replace(
+        pos=torch.stack([blob[sk.F_POS_X], blob[sk.F_POS_Y],
+                         blob[sk.F_POS_Z]], -1),
+        angle=blob[sk.F_ANGLE], speed=blob[sk.F_SPEED],
+        wheel_vels=torch.stack([blob[sk.F_WVL], blob[sk.F_WVR]], -1),
+        step_count=blob[sk.F_STEP].to(torch.int32), dyn=dyn)
+
+
+def _state_obs(blob, dist, dot_dir, angle_rad, inlane):
+    """The 11-column state observation f32 [B, 11] (env.render_obs
+    layout) from the blob's pose rows and lane features."""
+    a = blob[sk.F_ANGLE]
+    return torch.stack([
+        blob[sk.F_POS_X], blob[sk.F_POS_Z], torch.cos(a), torch.sin(a),
+        blob[sk.F_SPEED], dist * inlane, dot_dir * inlane,
+        angle_rad * inlane, inlane, blob[sk.F_WVL], blob[sk.F_WVR]], -1)
+
+
+def state_obs_from_blob(blob):
+    """The fused step's state observation f32 [B, 11] from the blob: pose
+    rows and the observation-side lane rows (F_O*), which on a done step
+    hold the fresh spawn's lane features while F_L* keep the dying step's
+    for the outputs."""
+    inlane = blob[sk.F_OINLANE]
+    return _state_obs(blob, blob[sk.F_OLDIST], blob[sk.F_OLDOT],
+                      blob[sk.F_OLDEG] * _DEG2RAD, inlane)
+
+
+def obs_from_blob(cfg, maps, blob, pk=None):
+    """Observation of the blob's current state without stepping (the
+    first observation of a rollout): frames through the blob render with
+    the packed plan ``pk``, or state vectors whose lane features come from
+    geometry.get_lane_pos2 on the blob's pose. ``maps`` is the map on the
+    blob's device."""
+    if cfg.obs_type == "rgb":
+        return br.render_frames_from_blob(blob, pk)
+    pos = torch.stack([blob[sk.F_POS_X], blob[sk.F_POS_Y],
+                       blob[sk.F_POS_Z]], -1)
+    lp = get_lane_pos2(maps, pos, blob[sk.F_ANGLE])
+    inlane = lp.in_lane.to(torch.float32)
+    return _state_obs(blob, lp.dist, lp.dot_dir, lp.angle_rad, inlane)
+
+
 def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
                        device="cuda"):
-    """(init_blob, fused_step, rollout) of the fused RGB rollout.
+    """(init_blob, fused_step, rollout) of the fused rollout.
 
-    init_blob(generator) -> blob f32 [NF, B]: bank spawns (env._bank_spawn
-    against the map's objects) drawn with the torch.Generator (a CPU
-    generator: the draw happens on the host).
-    fused_step(blob, actions[B, 2]) -> (blob, StepOutput, obs u8
-    [B, 3, S, 128]).
+    init_blob(generator) -> blob f32 [nf, B]: fresh states from env.reset
+    (bank spawns, NPC speeds, randomization draws) and the hash counters,
+    all drawn from ``generator``, a torch.Generator on the rollout's
+    device.
+    fused_step(blob, actions[B, 2]) -> (blob, StepOutput, obs): obs is u8
+    [B, C, S, 128] frames (C = 1 under grayscale) or f32 [B, 11] state
+    vectors. fused_step.tables and fused_step.pack are the kernels' device
+    tables and packed render plan (None for state observations).
     rollout(blob, actions, n_iters) -> (blob, reward_sum, obs_checksum):
     n_iters fused steps with fixed actions; reward_sum is the last step's
     reward summed over envs, obs_checksum the sum of the last frame's
-    first plane row (int64), as in the reference.
+    first plane row (int64), or of the last state vectors (int32), as in
+    the reference.
     """
     dev = resolve_device(device)
-    if cfg.obs_type != "rgb":
-        raise NotImplementedError("state observations are not ported yet")
-    if cfg.spawn_mode != "bank":
-        raise NotImplementedError("rejection spawning is not ported yet")
     if num_envs % 8 != 0:
         raise ValueError(f"num_envs must be divisible by 8; got {num_envs}")
+    # the render options are the blob render's to refuse (pack_plan)
+    env.check_scope(cfg, maps)
     tables = sk.build_tables(cfg, maps)
     st = sk.device_tables(cfg, tables, dev)
-    plan = br.build_render_plan(cfg, maps)
-    if plan is None:
-        raise NotImplementedError(
-            "maps with more than 48 objects need the row-fed render "
-            "kernels, which are not ported yet")
-    pk = br.pack_plan(cfg, plan, dev)
-    host = maps.numpy().to("cpu")
-    n_ok = env.bank_accept_count(cfg, host)
-    M = host.max_objects
+    pk = None
+    if cfg.obs_type == "rgb":
+        plan = br.build_render_plan(cfg, maps)
+        if plan is None:
+            raise NotImplementedError(
+                "maps with more than 48 objects need the row-fed render "
+                "kernels, which the fused path does not take yet")
+        pk = br.pack_plan(cfg, plan, dev)
+    maps_d = maps.to(dev)
+    n_ok = env.bank_accept_count(cfg, maps_d)
 
     def init_blob(generator: torch.Generator):
-        idxs = torch.randint(0, n_ok, (num_envs, env.NTRY),
-                             generator=generator)
-        rng = torch.randint(0, 65536, (num_envs,), generator=generator)
-        pos, angle = env._bank_spawn(
-            cfg, host, host.obj_pos.expand(num_envs, M, 3),
-            host.obj_mask.expand(num_envs, M), idxs)
-        f = lambda v: torch.full((num_envs,), float(np.float32(v)),
-                                 device=dev)
-        return pack_blob(pos.to(dev), angle.to(dev), rng.to(dev),
-                         f(cfg.robot_speed), f(C.WHEEL_DIST))
+        states = env.reset(cfg, maps_d, generator, num_envs, n_ok)
+        rng = torch.randint(0, 65536, (num_envs,), generator=generator,
+                            device=dev)
+        return pack_blob(states, maps_d, cfg.domain_rand, rng)
 
     def fused_step(blob, actions):
         blob = sk.state_step(blob, actions, st)
-        obs = br.render_frames_from_blob(blob, pk)
+        if pk is not None:
+            obs = br.render_frames_from_blob(blob, pk)
+        else:
+            obs = state_obs_from_blob(blob)
         return blob, unpack_outputs(blob), obs
 
     def rollout(blob, actions, n_iters: int):
@@ -127,7 +269,11 @@ def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
         for _ in range(n_iters):
             blob, out, obs = fused_step(blob, actions)
             rsum = out.reward.sum()
-            osum = obs[:, 0, 0, :].sum(dtype=torch.int64)
+            if pk is not None:
+                osum = obs[:, 0, 0, :].sum(dtype=torch.int64)
+            else:
+                osum = obs.sum().to(torch.int32)
         return blob, rsum, osum
 
+    fused_step.tables, fused_step.pack = st, pk
     return init_blob, fused_step, rollout

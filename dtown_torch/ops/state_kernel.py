@@ -12,8 +12,11 @@ tensor ``state_step`` launches the hand-written kernel
 (csrc/state_kernel.cu); on a CPU tensor it runs ``state_step_reference``,
 the plain torch version with the same float32 operation order.
 
-Scope of this slice: a static single map (no moving NPCs, no domain
-randomization, no Nav task, no map stacks); those raise.
+Moving NPCs (walking duckies, pure-pursuit duckiebots) step inside the
+kernel from their blob rows, and collide with their live footprints;
+under domain randomization the optional objects follow the env's
+visibility bits and every randomization row is redrawn at auto-reset.
+Scope: single maps; the Nav task and map stacks raise.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from dtown_torch import constants as C
 from dtown_torch import types as T
-from dtown_torch.geometry import sincos
+from dtown_torch.geometry import div, fma32, sincos
 
 # ---- blob field indices (f32 [F, B]) ---------------------------------
 F_POS_X, F_POS_Y, F_POS_Z, F_ANGLE, F_SPEED = 0, 1, 2, 3, 4
@@ -261,10 +264,10 @@ def _build_tables_single(cfg, maps):
 
 
 def _check_scope(cfg, tables):
-    if tables.get("npcs"):
-        raise NotImplementedError("moving NPCs are not ported yet")
-    if cfg.domain_rand:
-        raise NotImplementedError("domain randomization is not ported yet")
+    if len(tables["npcs"]) > MAX_NPC:
+        raise NotImplementedError(
+            f"{len(tables['npcs'])} moving NPCs; the kernel holds at most "
+            f"{MAX_NPC}")
 
 
 # ---- kernel scalar parameters ------------------------------------------
@@ -275,6 +278,42 @@ _PARAM_NAMES = (
     "dt", "inv_dt", "k_r_inv", "k_l_inv", "radius", "limit", "max_steps",
     "cam_back", "hw", "hl", "ts_inv", "agent_rad",
 )
+
+# NPC table rows ([NPC_F, n_npc], float32): the static descriptor of each
+# moving NPC, in moving_npcs order
+NPC_F = 8
+(NPC_KIND, NPC_X0, NPC_Z0, NPC_A0, NPC_HW, NPC_HL, NPC_RAD,
+ NPC_WALK) = range(NPC_F)
+NPC_DUCKIE, NPC_BOT = 0, 1
+MAX_NPC = 8
+
+# hash-stream salts of the in-kernel draws: _u01(tag) of the DR redraw and
+# the four Irwin-Hall uniforms of a duckie's fresh walk speed
+SALT_U01, TAG_STEP = 0x10000000, 0x3779B9
+SALT_DUCKIE, NPC_STEP = 0x30000000, 0x611C9
+
+# _u01 tags of the DR redraw's uniform rows, in the order of the kernel's
+# (lo, span) parameter pairs (csrc/state_kernel.cu D_*): robot speed,
+# wheel base, fov, camera height, pitch, forward offset, ambient, ground
+# rgb, horizon rgb
+DR_TAGS = (1, 2, 3, 4, 5, 6, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _dr_ranges(cfg):
+    """(lo, hi) of each DR_TAGS draw (dtown/randomization.py ranges)."""
+    rs0 = float(cfg.robot_speed)
+    g0 = [float(x) for x in C.NOMINAL_GROUND_COLOR]
+    h0 = [float(x) for x in C.NOMINAL_HORIZON_COLOR]
+    return (
+        (0.9 * rs0, 1.1 * rs0),
+        (0.95 * C.WHEEL_DIST, 1.05 * C.WHEEL_DIST),
+        (C.CAMERA_FOV_Y - 5.0, C.CAMERA_FOV_Y + 5.0),
+        (0.92 * C.CAMERA_FLOOR_DIST, 1.08 * C.CAMERA_FLOOR_DIST),
+        (C.CAMERA_ANGLE - 3.0, C.CAMERA_ANGLE + 3.0),
+        (0.9 * C.CAMERA_FORWARD_DIST, 1.1 * C.CAMERA_FORWARD_DIST),
+        (0.35, 0.7),
+    ) + tuple((g - 0.08, g + 0.08) for g in g0) \
+        + tuple((h - 0.2, h + 0.2) for h in h0)
 
 
 def kernel_params(cfg, tables):
@@ -298,22 +337,84 @@ def kernel_params(cfg, tables):
 
 
 def device_tables(cfg, tables, device):
-    """The kernel's inputs that do not change per step, on ``device``."""
+    """The kernel's inputs that do not change per step, on ``device``.
+
+    Besides the reference's tables: ``npc`` [NPC_F, n_npc] (the moving
+    NPCs' descriptors), ``colmap`` int32 [2, M] (per object column its NPC
+    index and, under domain randomization, its optional-object bit; -1
+    for none) and ``drp`` float32 [2 * 13] (the DR redraw's lo and span
+    per _u01 tag, Python-double folds rounded once)."""
     _check_scope(cfg, tables)
     dev = torch.device(device)
+    npcs = tuple(tables["npcs"])
+    dr = bool(cfg.domain_rand)
+    M = int(tables["M"])
+    npc = np.zeros((NPC_F, max(len(npcs), 1)), np.float32)
+    for i, d in enumerate(npcs):
+        npc[:, i] = (NPC_DUCKIE if d["kind"] == "duckie" else NPC_BOT,
+                     d["x0"], d["z0"], d["a0"], d["hw"], d["hl"], d["rad"],
+                     d["walk_dist"])
+    colmap = np.full((2, max(M, 1)), -1, np.int32)
+    for c, i in tables["moving_cols"]:
+        colmap[0, c] = i
+    if dr:
+        for k, c in enumerate(tables["opt_cols"]):
+            colmap[1, c] = k
+    drp = np.array([v for lo, hi in _dr_ranges(cfg) for v in (lo, hi - lo)],
+                   np.float32)
     return dict(
         words=torch.as_tensor(tables["words"][0], device=dev),
         ct=torch.as_tensor(tables["ct"], device=dev),
         ot=torch.as_tensor(tables["ot"], device=dev),
         bank=torch.as_tensor(tables["bank"], device=dev),
         prm=torch.as_tensor(kernel_params(cfg, tables), device=dev),
+        npc=torch.as_tensor(npc, device=dev),
+        colmap=torch.as_tensor(colmap, device=dev),
+        drp=torch.as_tensor(drp, device=dev),
         n_tiles=int(tables["Hg"] * tables["Wg"]),
-        Hg=int(tables["Hg"]), Wg=int(tables["Wg"]), M=int(tables["M"]),
+        Hg=int(tables["Hg"]), Wg=int(tables["Wg"]), M=M,
         n_ok=int(tables["n_ok"]),
         frame_skip=int(cfg.frame_skip),
         use_wm=bool(cfg.use_wheel_model),
         auto_reset=bool(cfg.auto_reset),
+        npcs=npcs, n_npc=len(npcs), domain_rand=dr,
+        n_opt=len(tables["opt_cols"]) if dr else 0,
+        nf=nf_for(len(npcs), dr),
     )
+
+
+def _u01(rng_i, env_i, tag):
+    """Per-(env, episode, tag) uniform in [0, 1) from the integer hash."""
+    hv = _hash_u32(rng_i, env_i, salt=SALT_U01 + tag * TAG_STEP)
+    return div((hv & 0xFFFF).to(torch.float32), 65536.0)
+
+
+_F32 = lambda v: float(np.float32(v))
+# the Irwin-Hall speed draw's scale, sqrt(3) * 0.005 folded in float32
+IH_SCALE = _F32(np.float32(1.7320508) * np.float32(0.005))
+
+
+def _drive(x, z, a, s_a, c_a, vl, vr, wheel_dist, dt):
+    """One differential-drive substep (simulator.py::_update_pos): pose and
+    wheel speeds -> new (x, z, angle). wheel_dist is a tensor."""
+    where = torch.where
+    dir_x, dir_z = c_a, -s_a
+    straight = vl == vr
+    npx_s = x + dt * vl * dir_x
+    npz_s = z + dt * vl * dir_z
+    denom = where(straight, 1.0, vl - vr)
+    w = (vr - vl) / wheel_dist
+    r_icc = wheel_dist * (vl + vr) / (2.0 * denom)
+    rot = w * dt
+    cx_ = x + r_icc * s_a
+    cz_ = z + r_icc * c_a
+    s_r, c_r = sincos(rot)
+    dx_ = x - cx_
+    dz_ = z - cz_
+    npx_a = cx_ + dx_ * c_r + dz_ * s_r
+    npz_a = cz_ + dz_ * c_r - dx_ * s_r
+    return (where(straight, npx_s, npx_a), where(straight, npz_s, npz_a),
+            a + where(straight, 0.0, rot))
 
 
 def state_step_reference(blob, act0, act1, dev):
@@ -327,6 +428,9 @@ def state_step_reference(blob, act0, act1, dev):
     ct = dev["ct"]
     ot = dev["ot"]
     bank = dev["bank"]
+    npcs = dev["npcs"]
+    dr = dev["domain_rand"]
+    drb = dr_base(len(npcs))
     i32 = torch.int32
     where = torch.where
 
@@ -338,6 +442,10 @@ def state_step_reference(blob, act0, act1, dev):
     rng_ctr = blob[F_RNG]
     env_id = blob[F_ENVID]
     map_row = blob[F_MAPID]
+    rng_i, env_i = rng_ctr.to(i32), env_id.to(i32)
+    if dr:
+        dr_rows = [blob[drb + k] for k in range(DR_ROWS)]
+        objvis = dr_rows[DR_OBJVIS].to(i32)
 
     # ---- wheel model -------------------------------------------------
     if dev["use_wm"]:
@@ -359,24 +467,8 @@ def state_step_reference(blob, act0, act1, dev):
     speed = torch.zeros_like(angle)
     for _ in range(dev["frame_skip"]):
         s_a, c_a = sincos(angle)
-        dir_x, dir_z = c_a, -s_a
-        straight = vl == vr
-        npx_s = pos_x + dt * vl * dir_x
-        npz_s = pos_z + dt * vl * dir_z
-        denom = where(straight, 1.0, vl - vr)
-        w = (vr - vl) / wheel_dist
-        r_icc = wheel_dist * (vl + vr) / (2.0 * denom)
-        rot = w * dt
-        cx_ = pos_x + r_icc * s_a
-        cz_ = pos_z + r_icc * c_a
-        s_r, c_r = sincos(rot)
-        dx_ = pos_x - cx_
-        dz_ = pos_z - cz_
-        npx_a = cx_ + dx_ * c_r + dz_ * s_r
-        npz_a = cz_ + dz_ * c_r - dx_ * s_r
-        new_x = where(straight, npx_s, npx_a)
-        new_z = where(straight, npz_s, npz_a)
-        new_angle = angle + where(straight, 0.0, rot)
+        new_x, new_z, new_angle = _drive(pos_x, pos_z, angle, s_a, c_a, vl,
+                                         vr, wheel_dist, dt)
         ddx = new_x - pos_x
         ddz = new_z - pos_z
         speed = torch.sqrt(ddx * ddx + ddz * ddz) * inv_dt
@@ -411,7 +503,7 @@ def state_step_reference(blob, act0, act1, dev):
     d_f, _ = drivable_at(acx + hl * dir_x, acz + hl * dir_z)
     all_driv = d_c2 & d_l & d_r & d_f
 
-    # ---- lane query --------------------------------------------------
+    # ---- lane query (the agent's lane position and the duckiebots') --
     def lane_query(qx, qz, qdx, qdz):
         q_driv, tid_q = drivable_at(qx, qz)
         pkg = ct[:, tid_q.long()]                     # [CT_F, B]
@@ -457,6 +549,48 @@ def state_step_reference(blob, act0, act1, dev):
             torch.clamp(tanx * tanx + tanz * tanz, min=1e-24))
         return px_c, pz_c, tanx * tinv, tanz * tinv, best_dot, q_driv
 
+    # ---- moving-NPC state machines (objects.py semantics) -------------
+    nrow = lambda i, k: blob[F_NPC_BASE + NPC_ROWS * i + k]
+    npc_x = [nrow(i, 0) for i in range(len(npcs))]
+    npc_z = [nrow(i, 1) for i in range(len(npcs))]
+    npc_a = [nrow(i, 2) for i in range(len(npcs))]
+    npc_w = [nrow(i, 3) for i in range(len(npcs))]
+    npc_v = [nrow(i, 4) for i in range(len(npcs))]
+    bot_wd = torch.full_like(pos_x, C.WHEEL_DIST)
+    for _ in range(dev["frame_skip"] if npcs else 0):
+        for i, npc in enumerate(npcs):
+            nx, nz, na, nw, nv = npc_x[i], npc_z[i], npc_a[i], npc_w[i], \
+                npc_v[i]
+            s_n, c_n = sincos(na)
+            if npc["kind"] == "duckie":
+                # walk along the heading, reverse after walk_dist
+                step_len = nv * dt
+                nx = nx + step_len * c_n
+                nz = nz - step_len * s_n
+                nw = nw + step_len
+                rev = nw > npc["walk_dist"]
+                na = where(rev, na + np.pi, na)
+                nw = where(rev, 0.0, nw)
+            else:
+                # scripted duckiebot: pure pursuit on two chained lane
+                # queries, then differential drive about WHEEL_DIST
+                bdx, bdz = c_n, -s_n
+                cpx, cpz, ctx, ctz, bd1, drv1 = lane_query(nx, nz, bdx, bdz)
+                fpx = cpx + C.DUCKIEBOT_FOLLOW_DIST * ctx
+                fpz = cpz + C.DUCKIEBOT_FOLLOW_DIST * ctz
+                gpx, gpz, _, _, bd2, drv2 = lane_query(fpx, fpz, bdx, bdz)
+                pvx = gpx - nx
+                pvz = gpz - nz
+                pinv = 1.0 / torch.sqrt(
+                    torch.clamp(pvx * pvx + pvz * pvz, min=1e-18))
+                dotr = (s_n * pvx + c_n * pvz) * pinv
+                steering = C.DUCKIEBOT_GAIN * (-dotr)
+                ok = drv1 & (bd1 > 0.0) & drv2 & (bd2 > 0.0)
+                steering = where(ok, steering, 0.0)
+                nx, nz, na = _drive(nx, nz, na, s_n, c_n, nv - steering,
+                                    nv + steering, bot_wd, dt)
+            npc_x[i], npc_z[i], npc_a[i], npc_w[i] = nx, nz, na, nw
+
     # ---- SAT collision + proximity ------------------------------------
     collided = torch.zeros_like(all_driv)
     prox_static = torch.full_like(pos_x, 1e30)
@@ -468,37 +602,71 @@ def state_step_reference(blob, act0, act1, dev):
             agc.append((acx + sf * dir_x + sr * right_x,
                         acz + sf * dir_z + sr * right_z))
         flags = ot[[OT_ACT, OT_DYN]].cpu().numpy() > 0.5
+        colmap = dev["colmap"].cpu().numpy()
         for m in range(M):
-            # 0-d float32 tensors: table values enter the math unrounded
-            ocx = [ot[OT_CX[2 * i], m] for i in range(4)]
-            ocz = [ot[OT_CX[2 * i + 1], m] for i in range(4)]
-            axes = [(dir_x, dir_z), (right_x, right_z),
-                    (ot[OT_NX[0], m], ot[OT_NX[1], m]),
-                    (ot[OT_NX[2], m], ot[OT_NX[3], m])]
-            o_act, o_dyn = bool(flags[0, m]), bool(flags[1, m])
+            i, kbit = int(colmap[0, m]), int(colmap[1, m])
+            if i >= 0:
+                # live NPC footprint (objects.py::dynamic_corners)
+                npc = npcs[i]
+                nx, nz = npc_x[i], npc_z[i]
+                s_n, c_n = sincos(npc_a[i])
+                fx_n, fz_n, rx_n, rz_n = c_n, -s_n, s_n, c_n
+                hw_n, hl_n = npc["hw"], npc["hl"]
+                ocx = [nx - hl_n * fx_n - hw_n * rx_n,
+                       nx + hl_n * fx_n - hw_n * rx_n,
+                       nx + hl_n * fx_n + hw_n * rx_n,
+                       nx - hl_n * fx_n + hw_n * rx_n]
+                ocz = [nz - hl_n * fz_n - hw_n * rz_n,
+                       nz + hl_n * fz_n - hw_n * rz_n,
+                       nz + hl_n * fz_n + hw_n * rz_n,
+                       nz - hl_n * fz_n + hw_n * rz_n]
+                obj_axes = [(rx_n, rz_n), (fx_n, fz_n)]
+                o_px, o_pz, o_rad = nx, nz, npc["rad"]
+                o_act, o_dyn = True, True
+            else:
+                # 0-d float32 tensors: table values enter the math unrounded
+                ocx = [ot[OT_CX[2 * k], m] for k in range(4)]
+                ocz = [ot[OT_CX[2 * k + 1], m] for k in range(4)]
+                obj_axes = [(ot[OT_NX[0], m], ot[OT_NX[1], m]),
+                            (ot[OT_NX[2], m], ot[OT_NX[3], m])]
+                o_px, o_pz, o_rad = ot[OT_PX, m], ot[OT_PZ, m], \
+                    ot[OT_RAD, m]
+                o_act, o_dyn = bool(flags[0, m]), bool(flags[1, m])
+                if kbit >= 0 and o_act:
+                    # optional-object visibility bit of this env
+                    o_act = ((objvis >> kbit) & 1) > 0
             separated = torch.zeros_like(all_driv)
-            for ax, az in axes:
+            for ax, az in [(dir_x, dir_z), (right_x, right_z)] + obj_axes:
                 amin = amax = None
                 for gx, gz in agc:
                     pa = gx * ax + gz * az
                     amin = pa if amin is None else torch.minimum(amin, pa)
                     amax = pa if amax is None else torch.maximum(amax, pa)
                 bmin = bmax = None
-                for i in range(4):
-                    pb = ocx[i] * ax + ocz[i] * az
+                for k in range(4):
+                    pb = ocx[k] * ax + ocz[k] * az
                     bmin = pb if bmin is None else torch.minimum(bmin, pb)
                     bmax = pb if bmax is None else torch.maximum(bmax, pb)
                 separated = separated | (amax < bmin) | (bmax < amin)
-            if o_act:
-                collided = collided | ~separated
-            dxo = ot[OT_PX, m] - acx
-            dzo = ot[OT_PZ, m] - acz
+            dxo = o_px - acx
+            dzo = o_pz - acz
             dist_o = torch.sqrt(dxo * dxo + dzo * dzo)
-            score = dist_o - agent_rad - ot[OT_RAD, m]
-            if o_act and not o_dyn:
-                prox_static = torch.minimum(prox_static, score)
-            if o_act and o_dyn:
-                prox_dyn = prox_dyn + torch.clamp(score, max=0.0)
+            score = dist_o - agent_rad - o_rad
+            if isinstance(o_act, torch.Tensor):
+                # a static optional object under domain randomization
+                collided = collided | (~separated & o_act)
+                if o_dyn:
+                    prox_dyn = prox_dyn + where(
+                        o_act, torch.clamp(score, max=0.0), 0.0)
+                else:
+                    prox_static = where(
+                        o_act, torch.minimum(prox_static, score), prox_static)
+            elif o_act:
+                collided = collided | ~separated
+                if o_dyn:
+                    prox_dyn = prox_dyn + torch.clamp(score, max=0.0)
+                else:
+                    prox_static = torch.minimum(prox_static, score)
     col_penalty = torch.clamp(prox_static, max=0.0) + prox_dyn
 
     valid = all_driv & ~collided
@@ -533,7 +701,7 @@ def state_step_reference(blob, act0, act1, dev):
     o_ldist, o_ldot, o_ldeg, o_inlane = signed_dist, dot_dir, lane_deg, \
         in_lane_f
     if dev["auto_reset"]:
-        h = _hash_u32(rng_ctr.to(i32), env_id.to(i32), salt=SALT_SPAWN)
+        h = _hash_u32(rng_i, env_i, salt=SALT_SPAWN)
         sp = bank[:, (h % max(dev["n_ok"], 1)).long()]   # [8, B]
         pos_x = where(done, sp[BK_X], pos_x)
         pos_y = where(done, sp[BK_Y], pos_y)
@@ -547,6 +715,62 @@ def state_step_reference(blob, act0, act1, dev):
         o_ldot = where(done, sp[BK_LDOT], o_ldot)
         o_ldeg = where(done, sp[BK_LDEG], o_ldeg)
         o_inlane = where(done, sp[BK_INLANE], o_inlane)
+        # NPCs re-place at their initial poses; a duckie's walk speed is
+        # redrawn ~N(0.02, 0.005) (Irwin-Hall sum of 4 hashed uniforms)
+        for i, npc in enumerate(npcs):
+            npc_x[i] = where(done, npc["x0"], npc_x[i])
+            npc_z[i] = where(done, npc["z0"], npc_z[i])
+            npc_a[i] = where(done, npc["a0"], npc_a[i])
+            npc_w[i] = where(done, 0.0, npc_w[i])
+            if npc["kind"] == "duckie":
+                usum = torch.zeros_like(pos_x)
+                for j in range(4):
+                    hv = _hash_u32(rng_i, env_i, salt=SALT_DUCKIE
+                                   + j * TAG_STEP + i * NPC_STEP)
+                    usum = usum + div((hv & 0xFFFF).to(torch.float32),
+                                      65536.0)
+                # 0.02 + 0.005 * ((usum - 2) * 1.7320508) with the two
+                # constants folded into one, then an FMA: the reference as
+                # XLA compiles it
+                fresh = torch.clamp(fma32(usum - 2.0, IH_SCALE,
+                                          _F32(C.DUCKIE_WALK_SPEED)),
+                                    min=0.001)
+                npc_v[i] = where(done, fresh, npc_v[i])
+        if dr:
+            # redraw every randomization row of a fresh episode
+            drp = [float(v) for v in dev["drp"].cpu()]
+            span = {tag: (drp[2 * k], drp[2 * k + 1])
+                    for k, tag in enumerate(DR_TAGS)}
+
+            def rdw(cur, tag):
+                lo, sp_ = span[tag]
+                return where(done, fma32(_u01(rng_i, env_i, tag), sp_, lo),
+                             cur)
+
+            robot_speed = rdw(robot_speed, 1)
+            wheel_dist = rdw(wheel_dist, 2)
+            for row_, tag in ((DR_FOV, 3), (DR_CAMH, 4), (DR_CAMA, 5),
+                              (DR_CAMF, 6), (DR_AMB, 9)):
+                dr_rows[row_] = rdw(dr_rows[row_], tag)
+            lx_n = fma32(_u01(rng_i, env_i, 7), _F32(0.8), -1.0)
+            lz_n = fma32(_u01(rng_i, env_i, 8), _F32(0.8), -1.0)
+            linv = 1.0 / torch.sqrt(lx_n * lx_n + 1.0 + lz_n * lz_n)
+            dr_rows[DR_LX] = where(done, lx_n * linv, dr_rows[DR_LX])
+            dr_rows[DR_LY] = where(done, -linv, dr_rows[DR_LY])
+            dr_rows[DR_LZ] = where(done, lz_n * linv, dr_rows[DR_LZ])
+            for c, row_ in enumerate((DR_GR, DR_GG, DR_GB)):
+                dr_rows[row_] = torch.clamp(rdw(dr_rows[row_], 10 + c),
+                                            0.0, 1.0)
+            for c, row_ in enumerate((DR_HR, DR_HG, DR_HB)):
+                dr_rows[row_] = torch.clamp(rdw(dr_rows[row_], 13 + c),
+                                            0.0, 1.0)
+            seed = torch.floor(_u01(rng_i, env_i, 16) * float(1 << 23))
+            dr_rows[DR_TEXSEED] = where(done, seed, dr_rows[DR_TEXSEED])
+            vis = torch.zeros_like(pos_x)
+            for kbit in range(dev["n_opt"]):
+                vis = vis + where(_u01(rng_i, env_i, 17 + kbit) < 0.5,
+                                  float(1 << kbit), 0.0)
+            dr_rows[DR_OBJVIS] = where(done, vis, dr_rows[DR_OBJVIS])
     rng_ctr = rng_ctr + 1.0
 
     rows = [
@@ -557,6 +781,10 @@ def state_step_reference(blob, act0, act1, dev):
         collided.to(torch.float32), step_cnt * dt, env_id,
         o_ldist, o_ldot, o_ldeg, o_inlane, map_row,
     ]
+    for i in range(len(npcs)):
+        rows += [npc_x[i], npc_z[i], npc_a[i], npc_w[i], npc_v[i]]
+    if dr:
+        rows += dr_rows
     out = torch.zeros_like(blob)
     out[:len(rows)] = torch.stack(rows)
     return out
@@ -568,20 +796,22 @@ def _lib():
     lib = _build.load("state_kernel")
     fn = lib.dtown_state_step
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 11
+                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def state_step(blob, actions, dev):
-    """One fused state step. blob f32 [NF, B]; actions f32 [B, 2];
-    dev = device_tables(...) on the blob's device. Returns the new blob.
+    """One fused state step. blob f32 [nf, B] (nf = dev["nf"]); actions
+    f32 [B, 2]; dev = device_tables(...) on the blob's device. Returns the
+    new blob.
 
     A CUDA blob goes through the hand-written kernel (csrc/state_kernel.cu)
     and a CPU blob through ``state_step_reference``."""
-    if blob.dtype != torch.float32 or blob.dim() != 2 or blob.shape[0] < NF:
-        raise ValueError(f"blob must be float32 [>={NF}, B], got "
+    nf = dev["nf"]
+    if blob.dtype != torch.float32 or blob.dim() != 2 or blob.shape[0] != nf:
+        raise ValueError(f"blob must be float32 [{nf}, B], got "
                          f"{tuple(blob.shape)} {blob.dtype}")
     B = blob.shape[1]
     if actions.shape != (B, 2) or actions.dtype != torch.float32:
@@ -601,10 +831,12 @@ def state_step(blob, actions, dev):
     err = fn(blob.data_ptr(), actions.data_ptr(), out.data_ptr(),
              dev["words"].data_ptr(), dev["ct"].data_ptr(),
              dev["ot"].data_ptr(), dev["bank"].data_ptr(),
-             dev["prm"].data_ptr(),
-             B, blob.shape[0], dev["n_tiles"], dev["Hg"], dev["Wg"],
+             dev["prm"].data_ptr(), dev["npc"].data_ptr(),
+             dev["colmap"].data_ptr(), dev["drp"].data_ptr(),
+             B, nf, dev["n_tiles"], dev["Hg"], dev["Wg"],
              dev["M"], dev["n_ok"], dev["frame_skip"],
-             int(dev["use_wm"]), int(dev["auto_reset"]), stream)
+             int(dev["use_wm"]), int(dev["auto_reset"]), dev["n_npc"],
+             int(dev["domain_rand"]), dev["n_opt"], stream)
     if err != 0:
         raise RuntimeError(f"state_step kernel launch failed: CUDA error "
                            f"{err}")

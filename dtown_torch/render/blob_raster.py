@@ -1,27 +1,32 @@
 """Blob-fed render: camera frames straight from the state blob.
 
-Counterpart of dtown/render/blob_raster.py. Each step of the fused RGB
+Counterpart of dtown/render/blob_raster.py. Each step of the fused
 rollout renders every env's camera frame directly from the state blob
-[NF, B]: camera basis from the pose rows, ray-ground hit, tile lookup in
+[nf, B]: camera basis from the pose rows, ray-ground hit, tile lookup in
 the packed tile words, analytic markings with box-filter AA, hash noise,
-then the static scene's sphere/box primitives with size-aware LOD culls,
-and the sky.
+then the scene's sphere/box primitives with size-aware LOD culls, and the
+sky. Moving NPCs take their poses from the blob's NPC rows (walking
+duckies with their gait wiggle); under domain randomization the camera,
+light, colours, texture variants and optional objects come from the
+blob's DR rows, and the rays are built per env; grayscale renders one
+luma plane.
 
-``build_render_plan`` bakes the static scene on the host (same plan as
-the reference); ``pack_plan`` flattens it into float32/int32 tables for
-the kernel, so one compiled kernel serves every scene. On a CUDA blob
+``build_render_plan`` bakes the scene on the host (same plan as the
+reference); ``pack_plan`` flattens it into float32/int32 tables for the
+kernel, so one compiled kernel serves every scene. On a CUDA blob
 ``render_frames_from_blob`` launches csrc/blob_render.cu; on a CPU blob it
 runs ``render_frames_reference``, the plain torch version with the same
 float32 operation order.
 
-Scope of this slice: RGB, static rays, one map, static objects. Domain
-randomization, moving NPCs, map stacks, fisheye, grayscale and
-triangle-mesh objects raise NotImplementedError.
+Scope: single maps; map stacks, fisheye and triangle-mesh objects raise
+NotImplementedError.
 
-Differences from the TPU kernel, none beyond rounding: the ground is
-shaded in float32 and quantized once (the TPU default carries packed u8
-bytes; the two differ by <= ~2 counts), prims fold sequentially instead
-of pair-combined (same winner), and objects are visited in plan order.
+Differences from the TPU kernel, none beyond rounding: the static RGB
+ground is shaded in float32 and quantized once (the TPU default carries
+packed u8 bytes; the two differ by <= ~2 counts), prims fold sequentially
+instead of pair-combined (same winner), objects are visited in plan order,
+and static objects skip the TPU kernel's conservative cluster culls (they
+never change a pixel; the moving NPCs' view half-plane cull is kept).
 """
 from __future__ import annotations
 
@@ -37,8 +42,13 @@ from dtown_torch.geometry import sincos
 from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import lod as lodlib
 from dtown_torch.render import meshes as meshlib
+from dtown_torch.render.shading import (
+    ASPHALT, EMPTY, FLOOR, GRASS, NOISE_AMP, WHITE, YELLOW,
+)
+from dtown_torch.randomization import variant_hash
 from dtown_torch.render.tile_shading import (
-    INTERSECTION_KINDS, _select_word, _shade_pixels,
+    INTERSECTION_KINDS, _noise_h16f, _select_word, _shade_pixels,
+    _tile_masks,
 )
 
 LANE_N = 128  # pixel lane width of the [S, 128] frame layout
@@ -62,12 +72,11 @@ def pack_tile_words(kind, ang):
 
 
 def build_render_plan(cfg, maps):
-    """Bake the static scene plan of one map (dict), or None when the scene
-    has more than 48 objects (the reference's planless fallback)."""
+    """Bake the scene plan of one map (dict), or None when the scene has
+    more than 48 objects or more than 8 moving NPCs (the reference's
+    planless fallback)."""
     if np.asarray(maps.tile_kind).ndim == 3:
         raise NotImplementedError("stacked multimaps are not ported yet")
-    if cfg.domain_rand:
-        raise NotImplementedError("domain randomization is not ported yet")
     if cfg.mesh_fidelity == "triangles":
         raise NotImplementedError("triangle-mesh objects are not ported yet")
     obj_mask = np.asarray(maps.obj_mask)
@@ -78,9 +87,11 @@ def build_render_plan(cfg, maps):
     if n_objects > 48:
         return None
     clustered = n_objects > 24
+    # moving NPCs: geometry baked per slot, pose read from the blob rows
     npcs = sk.moving_npcs(maps)
-    if npcs:
-        raise NotImplementedError("moving NPCs are not ported yet")
+    slot_to_npc = {npc["slot"]: i for i, npc in enumerate(npcs)}
+    if len(npcs) > 8:
+        return None
 
     light = np.asarray(Cc.NOMINAL_LIGHT_DIR, np.float64)
     light = light / np.linalg.norm(light)
@@ -124,11 +135,15 @@ def build_render_plan(cfg, maps):
                 lamp=bool(tables["phase"][k, p]),
                 culld=min(cull_d, float(lod_base[k, p]) * sc),
             ))
+        npc_idx = slot_to_npc.get(int(m))
         objs.append(dict(
             pos=tuple(float(x) for x in pos[m]),
             s_r=s_r, c_r=c_r, inv_s=1.0 / max(sc, 1e-6), scale=sc,
             l_model=(float(lmx), float(lmy), float(lmz)),
-            prims=prims, npc_idx=None, wiggle=False, slot=int(m), map=None,
+            prims=prims, npc_idx=npc_idx,
+            wiggle=(npc_idx is not None
+                    and k == T.OBJ_KIND_IDS["duckie"]),
+            slot=int(m), map=None,
         ))
     optional = np.asarray(maps.obj_optional)
     opt_bit = {}
@@ -148,9 +163,9 @@ def build_render_plan(cfg, maps):
 
     Hg, Wg = maps.grid_shape
     return dict(
-        domain_rand=False,
+        domain_rand=bool(cfg.domain_rand),
         aa=bool(getattr(cfg, "marking_aa", True)),
-        n_real=n_objects, n_npc=0, n_opt=kbit, multi=None,
+        n_real=n_objects, n_npc=len(npcs), n_opt=kbit, multi=None,
         Hg=int(Hg), Wg=int(Wg), n_words=len(words), words=words,
         present=present, ts_inv=1.0 / float(maps.tile_size),
         tan_half=tan_half, sin_pitch=math.sin(pitch),
@@ -180,11 +195,18 @@ def _lod_band(cd, cull_d):
 
 def _lod_split(objs, cull_d):
     """Split each static object's prims into per-LOD-band pseudo-objects
-    (shared pose) and annotate culld = max member prim cull distance."""
+    (shared pose) and annotate culld = max member prim cull distance.
+    Moving NPCs stay whole."""
     out = []
     for ob in objs:
         prims = ob["prims"]
         if not prims:
+            continue
+        if ob["npc_idx"] is not None:
+            o2 = dict(ob)
+            o2["culld"] = max(p.get("culld", cull_d) for p in prims)
+            o2["lod_band"] = _lod_band(o2["culld"], cull_d)
+            out.append(o2)
             continue
         bands = {}
         for p in prims:
@@ -199,13 +221,48 @@ def _lod_split(objs, cull_d):
     return out
 
 
-def _static_ray_planes(H, W, plan):
+def _bound_radius(ob):
+    """World-space bounding radius of an object's prims around its
+    position (model extents times the object scale)."""
+    r = 0.0
+    for pr in ob["prims"]:
+        c, p = pr["center"], pr["param"]
+        pr_r = (math.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
+                if pr["is_box"] else p[0])
+        r = max(r, math.sqrt(c[0] ** 2 + c[1] ** 2 + c[2] ** 2) + pr_r)
+    return r * ob["scale"]
+
+
+def _npc_view_radius(plan):
+    """{object index: r_vis} of the moving NPCs that the reference kernel
+    wraps in a singleton cluster with a view half-plane cull: every NPC of
+    a clustered (> 24 object) plan, and on smaller maps an NPC whose own
+    cull distance puts it among the LOD clusters and stays under half the
+    map's diagonal. The cull skips an NPC whose bounding circle lies
+    wholly behind the camera's flat forward half-plane."""
+    objs = plan["objs"]
+    cull_w = math.sqrt(plan["cull2"])
+    is_lod = lambda o: o.get("culld", cull_w) < cull_w * 0.999
+    diag = math.hypot(plan["Hg"], plan["Wg"]) / plan["ts_inv"]
+    any_lod = any(is_lod(o) for o in objs)
+    out = {}
+    for i, ob in enumerate(objs):
+        if ob["npc_idx"] is None:
+            continue
+        if plan["cluster"] or (any_lod and is_lod(ob)
+                               and ob.get("culld", cull_w) < 0.5 * diag):
+            out[i] = _bound_radius(ob)
+    return out
+
+
+def _static_ray_planes(H, W, plan, grayscale=False):
     """[5, S, 128] float32 static per-pixel ray planes [A, B, D, E, F]
-    (no fisheye): the first five planes of the reference's. Per env the
-    ray is a yaw rotation of two planes: dx = c*A + s*B, dz = c*B - s*A,
-    dy = D; E = -1/D on ground lanes (0 on sky lanes), F = the clamped
-    1/D of the box y-slab. The reference's sixth plane (baked packed sky)
-    is not needed: the float path computes the sky from D."""
+    (no fisheye, no domain randomization): the first five planes of the
+    reference's. Per env the ray is a yaw rotation of two planes: dx = c*A
+    + s*B, dz = c*B - s*A, dy = D; E = -1/D on ground lanes (0 on sky
+    lanes), F = the clamped 1/D of the box y-slab. With grayscale a sixth
+    plane carries the reference's baked sky luma; the RGB float path
+    computes the sky from D instead of the reference's packed plane."""
     S = H * W // LANE_N
     p = np.arange(S * LANE_N, dtype=np.int64).reshape(S, LANE_N)
     y = p // W
@@ -226,7 +283,16 @@ def _static_ray_planes(H, W, plan):
     Dc = np.where(np.abs(D) < 1e-9, np.where(D >= 0, 1e-9, -1e-9),
                   D.astype(np.float64))
     F = (1.0 / Dc).astype(np.float32)
-    return np.stack([A, B, D, E, F])
+    if not grayscale:
+        return np.stack([A, B, D, E, F])
+    skyf = 1.0 - 0.35 * np.maximum(0.0, D.astype(np.float64))
+    sky = (_lum(plan["horizon"]) * skyf).astype(np.float32)
+    return np.stack([A, B, D, E, F, sky])
+
+
+def _lum(c3):
+    """Luma of an RGB triple of Python floats (a double fold)."""
+    return 0.299 * c3[0] + 0.587 * c3[1] + 0.114 * c3[2]
 
 
 # ---- flat kernel tables ---------------------------------------------------
@@ -235,19 +301,30 @@ _SCENE_NAMES = (
     "cam_fwd", "cam_height", "ts_inv", "k_fw", "shade", "gr", "gg", "gb",
     "hr", "hg", "hb", "ambient", "k_diff", "lwx", "lwy", "lwz", "dt",
     "inv_tl",
+    # per-env rays under domain randomization
+    "aspect", "deg", "half_h", "inv_w", "inv_h",
+    # luma ground: base lumas by kind, marking terms, noise amplitudes by
+    # kind, off-map ground (static shade folded in; scale 1 under DR)
+    "l_empty", "l_road", "l_grass", "l_floor", "l_y", "l_w",
+    "a_other", "a_grass", "a_road", "l_out",
+    # traffic-light lamp lumas, green and red
+    "l_green", "l_red",
 )
 # per-object floats (O_*) and ints (OI_*)
-OBJ_F = 11
+OBJ_F = 12
 (O_X, O_Y, O_Z, O_SR, O_CR, O_INVS, O_SC, O_LMX, O_LMY, O_LMZ,
- O_CULL2) = range(11)
-OBJ_I = 3
-OI_P0, OI_NP, OI_BOX = range(3)
+ O_CULL2, O_RV) = range(12)
+OBJ_I = 7
+OI_P0, OI_NP, OI_BOX, OI_NPC, OI_OPT, OI_WIG, OI_PRED = range(7)
 # per-prim floats (P_*) and ints (PI_*)
-PRIM_F = 12
+PRIM_F = 13
 (P_CX, P_CY, P_CZ, P_P0, P_P1, P_P2, P_CD2, P_CWX, P_CWY, P_CWZ, P_RW2,
- P_NDV) = range(12)
+ P_NDV, P_LUMA) = range(13)
 PRIM_I = 4
 PI_BOX, PI_LAMP, PI_COLOR, PI_OWN = range(4)
+
+B0 = 0.94  # texture variant 0's brightness
+AMP_GRASS, AMP_OTHER = 0.03, 0.015
 
 
 def _q8(c):
@@ -258,8 +335,41 @@ def _packed(c3):
     return (_q8(c3[0]) << 16) | (_q8(c3[1]) << 8) | _q8(c3[2])
 
 
-LAMP_GREEN = _packed((0.1, 0.85, 0.15))
-LAMP_RED = _packed((0.9, 0.1, 0.1))
+LAMP_GREEN_RGB = (0.1, 0.85, 0.15)
+LAMP_RED_RGB = (0.9, 0.1, 0.1)
+LAMP_GREEN = _packed(LAMP_GREEN_RGB)
+LAMP_RED = _packed(LAMP_RED_RGB)
+
+
+def _lum32(c3):
+    """Luma of an RGB triple in float32 arithmetic (the reference computes
+    the lamp lumas from per-env selects)."""
+    f = np.float32
+    return float(f(f(f(0.299) * f(c3[0])) + f(f(0.587) * f(c3[1])))
+                 + f(f(0.114) * f(c3[2])))
+
+
+def _luma_consts(plan, aa, dr):
+    """The luma ground's constants: base lumas by kind, marking terms
+    (deltas from asphalt under AA, else the marking lumas), noise
+    amplitudes by kind and the off-map ground luma. The static path folds
+    brightness and shade into them; under DR they are unscaled."""
+    shade = plan["shade"]
+    scale = 1.0 if dr else B0 * shade
+    nsc = 1.0 if dr else shade
+    lum_a = _lum(ASPHALT)
+    return dict(
+        l_empty=_lum(EMPTY) * scale, l_road=lum_a * scale,
+        l_grass=_lum(GRASS) * scale, l_floor=_lum(FLOOR) * scale,
+        l_y=((_lum(YELLOW) - lum_a) * scale if aa
+             else _lum(YELLOW) * scale),
+        l_w=((_lum(WHITE) - lum_a) * scale if aa
+             else _lum(WHITE) * scale),
+        a_other=AMP_OTHER * nsc, a_grass=AMP_GRASS * nsc,
+        a_road=NOISE_AMP * nsc,
+        l_out=_lum(plan["ground"]) * shade,
+        l_green=_lum32(LAMP_GREEN_RGB), l_red=_lum32(LAMP_RED_RGB),
+    )
 
 
 def pack_plan(cfg, plan, device):
@@ -268,12 +378,12 @@ def pack_plan(cfg, plan, device):
     Every value is the reference's Python-double constant fold, rounded
     once to float32. Returns a dict of tensors and ints."""
     H, W = cfg.camera_height, cfg.camera_width
-    if cfg.grayscale:
-        raise NotImplementedError("grayscale rendering is not ported yet")
     if cfg.distortion:
         raise NotImplementedError("fisheye distortion is not ported yet")
     if (H * W) % LANE_N:
         raise ValueError(f"H*W must be a multiple of {LANE_N}: {H}x{W}")
+    gray = bool(cfg.grayscale)
+    dr = bool(plan["domain_rand"])
     present = plan["present"]
     marking = any(k in present
                   for k in range(T.TILE_STRAIGHT, T.TILE_4WAY + 1))
@@ -291,9 +401,12 @@ def pack_plan(cfg, plan, device):
         ambient=amb, k_diff=1.0 - amb,
         lwx=plan["light"][0], lwy=plan["light"][1], lwz=plan["light"][2],
         dt=plan["dt"], inv_tl=1.0 / plan["tl_period"],
+        aspect=W / H, deg=math.pi / 180.0, half_h=H * 0.5, inv_w=1.0 / W,
+        inv_h=1.0 / H, **_luma_consts(plan, aa, dr),
     )
     cull_w = math.sqrt(plan["cull2"])
     objs = plan["objs"]
+    view_r = _npc_view_radius(plan)
     n_prims = sum(len(ob["prims"]) for ob in objs)
     of = np.zeros((max(len(objs), 1), OBJ_F), np.float32)
     oi = np.zeros((max(len(objs), 1), OBJ_I), np.int32)
@@ -308,9 +421,15 @@ def pack_plan(cfg, plan, device):
             ox, oy, oz, s_r, c_r, ob["inv_s"], sc)
         of[i, [O_LMX, O_LMY, O_LMZ]] = ob["l_model"]
         of[i, O_CULL2] = culld_o * culld_o
+        of[i, O_RV] = view_r.get(i, 0.0)
         oi[i, OI_P0] = j
         oi[i, OI_NP] = len(ob["prims"])
         oi[i, OI_BOX] = int(any(p["is_box"] for p in ob["prims"]))
+        oi[i, OI_NPC] = -1 if ob["npc_idx"] is None else ob["npc_idx"]
+        oi[i, OI_OPT] = (ob["opt_bit"] if dr and ob["opt_bit"] is not None
+                         else -1)
+        oi[i, OI_WIG] = int(ob["wiggle"])
+        oi[i, OI_PRED] = int(i in view_r)
         for pr in ob["prims"]:
             cx, cy, cz = pr["center"]
             p0, p1, p2 = pr["param"]
@@ -325,21 +444,27 @@ def pack_plan(cfg, plan, device):
                     oz + sc * (cx * s_r + cz * c_r))
                 pf[j, P_RW2] = rw * rw
                 pf[j, P_NDV] = -1.0 / max(rw, 1e-9)
+            pf[j, P_LUMA] = _lum(pr["color"])
             pi[j, PI_BOX] = int(pr["is_box"])
             pi[j, PI_LAMP] = int(pr["lamp"])
             pi[j, PI_COLOR] = _packed(pr["color"])
             pi[j, PI_OWN] = int(cd < culld_o * 0.999)
             j += 1
-    no_clamp = all(
+    # the output clamp is a no-op when every contribution is provably in
+    # [0, 1]; domain randomization keeps it, as the reference does
+    no_clamp = (not dr) and all(
         0.0 <= c <= 1.0 for ob in objs for pr in ob["prims"]
         for c in pr["color"]) and all(
         0.0 <= c <= 1.0 for c in tuple(plan["ground"])
         + tuple(plan["horizon"]))
     dev = torch.device(device)
-    rays = _static_ray_planes(H, W, plan).reshape(5, -1)
+    n_npc = int(plan["n_npc"])
+    rays = _static_ray_planes(H, W, plan, grayscale=gray)
+    rays = rays.reshape(rays.shape[0], -1)
     words = np.asarray(plan["words"], np.int32)
     return dict(
-        H=H, W=W,
+        H=H, W=W, C=1 if gray else 3, gray=gray, dr=dr, n_npc=n_npc,
+        drb=sk.dr_base(n_npc), nf=sk.nf_for(n_npc, dr),
         rays=torch.as_tensor(np.ascontiguousarray(rays), device=dev),
         words=torch.as_tensor(words, device=dev),
         scene=torch.as_tensor(
@@ -353,36 +478,108 @@ def pack_plan(cfg, plan, device):
     )
 
 
+def _fdiv(a, b):
+    """a / b with b a tensor and a a Python float: a full tensor divided,
+    not a reciprocal multiplied (torch's scalar / tensor takes 1/b)."""
+    return torch.full_like(b, a) / b
+
+
+def _luma_ground(masks, sc, aa):
+    """Luma of the ground texel before noise: the base luma of the pixel's
+    kind, then the marking terms (AA coverage deltas, else the marking
+    lumas over the base)."""
+    yellow, white, is_road, is_grass, is_floor = masks
+    l_ = torch.where(is_road, sc["l_road"], torch.where(
+        is_grass, sc["l_grass"], torch.where(is_floor, sc["l_floor"],
+                                             sc["l_empty"])))
+    if aa:
+        return l_ + yellow * sc["l_y"] + white * sc["l_w"]
+    l_ = torch.where(yellow, sc["l_y"], l_)
+    return torch.where(white, sc["l_w"], l_)
+
+
 def render_frames_reference(blob, pk):
-    """Plain torch version of the blob render kernel. blob f32 [NF, B];
-    pk = pack_plan(...). Returns uint8 [B, 3, S, 128]."""
+    """Plain torch version of the blob render kernel. blob f32 [nf, B];
+    pk = pack_plan(...). Returns uint8 [B, C, S, 128]."""
     B = blob.shape[1]
     H, W = pk["H"], pk["W"]
+    P = H * W
     sc_ = [float(v) for v in pk["scene"].cpu()]
     scene = dict(zip(_SCENE_NAMES, sc_))
+    dr, gray, aa = pk["dr"], pk["gray"], pk["aa"]
     where = torch.where
     i32 = torch.int32
     f32 = torch.float32
+    dev = blob.device
     rays = pk["rays"]
-    A_p, B_p, D_p, E_p, F_p = (rays[i][None, :] for i in range(5))
-    gmask = D_p < -1e-6
 
     col = lambda f: blob[f][:, None]                # [B, 1]
     px_s, py_s, pz_s = col(sk.F_POS_X), col(sk.F_POS_Y), col(sk.F_POS_Z)
     ang_s, step_s = col(sk.F_ANGLE), col(sk.F_STEP)
     s_a, c_a = sincos(ang_s)
-    eye0 = px_s + scene["cam_fwd"] * c_a
-    eye1 = py_s + scene["cam_height"]
-    eye2 = pz_s + scene["cam_fwd"] * (-s_a)
+    if dr:
+        # per-env randomization scalars from the DR rows
+        d = lambda k: col(pk["drb"] + k)
+        s_h, c_h = sincos(0.5 * d(sk.DR_FOV) * scene["deg"])
+        tany_e = s_h / c_h
+        tanx_e = tany_e * scene["aspect"]
+        sp_e, cp_e = sincos(d(sk.DR_CAMA) * scene["deg"])
+        camh_e, camf_e = d(sk.DR_CAMH), d(sk.DR_CAMF)
+        lw = (d(sk.DR_LX), d(sk.DR_LY), d(sk.DR_LZ))
+        amb_e = d(sk.DR_AMB)
+        kd_e = 1.0 - amb_e
+        shade_e = amb_e + kd_e * torch.clamp(-lw[1], min=0.0)
+        ground = (d(sk.DR_GR), d(sk.DR_GG), d(sk.DR_GB))
+        horizon = (d(sk.DR_HR), d(sk.DR_HG), d(sk.DR_HB))
+        seed_e = d(sk.DR_TEXSEED).to(i32)
+        visbits = d(sk.DR_OBJVIS).to(i32)
+    else:
+        camh_e, camf_e = scene["cam_height"], scene["cam_fwd"]
+        lw = (scene["lwx"], scene["lwy"], scene["lwz"])
+        amb_e, kd_e, shade_e = (scene["ambient"], scene["k_diff"],
+                                scene["shade"])
+        ground = (scene["gr"], scene["gg"], scene["gb"])
+        horizon = (scene["hr"], scene["hg"], scene["hb"])
+    eye0 = px_s + camf_e * c_a
+    eye1 = py_s + camh_e
+    eye2 = pz_s + camf_e * (-s_a)
 
-    dx = c_a * A_p + s_a * B_p                      # [B, P]
-    dy = D_p.expand_as(dx)
-    dz = c_a * B_p - s_a * A_p
-    t_g = eye1 * E_p
-    inv_fw = None
-    if pk["aa"]:
-        k_fw = scene["k_fw"] / eye1
-        inv_fw = dy * dy * k_fw
+    if dr:
+        # per-pixel camera basis, normalization and ground divide
+        p = torch.arange(P, dtype=torch.int64, device=dev)
+        y = p // W
+        x = p - y * W
+        xn_b = ((x.to(f32) + 0.5) * scene["inv_w"] - 0.5) * 2.0
+        yn_b = (0.5 - (y.to(f32) + 0.5) * scene["inv_h"]) * 2.0
+        xn = xn_b[None, :] * tanx_e                  # [B, P]
+        yn = yn_b[None, :] * tany_e
+        fwd_x, fwd_y, fwd_z = cp_e * c_a, -sp_e, -cp_e * s_a
+        up_x, up_y, up_z = sp_e * c_a, cp_e, -sp_e * s_a
+        dx = fwd_x + xn * s_a + yn * up_x
+        dy = fwd_y + yn * up_y
+        dz = fwd_z + xn * c_a + yn * up_z
+        inv_n = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+        dx, dy, dz = dx * inv_n, dy * inv_n, dz * inv_n
+        gmask = dy < -1e-6
+        t_g = where(gmask, -eye1 / where(gmask, dy, -1.0), 1e30)
+        skyf = 1.0 - 0.35 * torch.clamp(dy, min=0.0)
+        inv_dy = 1.0 / where(torch.abs(dy) < 1e-9,
+                             where(dy >= 0, 1e-9, -1e-9), dy)
+        k_fw = None
+        if aa:
+            k_fw = _fdiv(scene["half_h"], tany_e)
+            k_fw = k_fw / torch.full_like(k_fw, scene["ts_inv"]) / eye1
+    else:
+        A_p, B_p, D_p, E_p, F_p = (rays[i][None, :] for i in range(5))
+        dx = c_a * A_p + s_a * B_p                      # [B, P]
+        dy = D_p.expand_as(dx)
+        dz = c_a * B_p - s_a * A_p
+        gmask = D_p < -1e-6
+        t_g = eye1 * E_p
+        skyf = 1.0 - 0.35 * torch.clamp(D_p, min=0.0)
+        inv_dy = F_p
+        k_fw = _fdiv(scene["k_fw"], eye1) if aa else None
+    inv_fw = dy * dy * k_fw if aa else None
     ts_inv = scene["ts_inv"]
     fx = (eye0 + t_g * dx) * ts_inv
     fz = (eye2 + t_g * dz) * ts_inv
@@ -395,16 +592,38 @@ def render_frames_reference(blob, pk):
     byte = (word >> ((tid & 3) << 3)) & 0xFF
     kind = byte & 0xF
     angle_idx = (byte >> 4) & 0x3
-    r_, g_, b_ = _shade_pixels(kind, angle_idx, fx - ti, fz - tj,
-                               pk["any_x"], inv_fw=inv_fw)
-    shade = scene["shade"]
-    r_ = where(in_grid, r_, scene["gr"]) * shade
-    g_ = where(in_grid, g_, scene["gg"]) * shade
-    b_ = where(in_grid, b_, scene["gb"]) * shade
-    skyf = 1.0 - 0.35 * torch.clamp(D_p, min=0.0)
-    r_ = where(gmask, r_, scene["hr"] * skyf)
-    g_ = where(gmask, g_, scene["hg"] * skyf)
-    b_ = where(gmask, b_, scene["hb"] * skyf)
+    variant = variant_hash(tid, seed_e) if dr else None
+
+    if gray:
+        yellow, white, is_road, is_grass, is_floor, bu, bv = _tile_masks(
+            kind, angle_idx, fx - ti, fz - tj, pk["any_x"], inv_fw=inv_fw)
+        l_ = _luma_ground((yellow, white, is_road, is_grass, is_floor),
+                          scene, aa)
+        nrm = _noise_h16f(bu, bv, kind, variant if dr else 0) \
+            * (1.0 / 32768.0) - 1.0
+        ampv = where(is_road, scene["a_road"], where(
+            is_grass, scene["a_grass"], scene["a_other"]))
+        if dr:
+            # luma-direct DR ground: brightness per texel, shade per env
+            bright = 0.94 + 0.04 * variant.to(f32)
+            l_ = l_ * bright + nrm * ampv
+            lum_e = lambda c: 0.299 * c[0] + 0.587 * c[1] + 0.114 * c[2]
+            l_ = where(in_grid, l_, lum_e(ground)) * shade_e
+            l_ = where(gmask, l_, lum_e(horizon) * skyf)
+        else:
+            l_ = l_ + nrm * ampv
+            l_ = where(in_grid, l_, scene["l_out"])
+            l_ = where(gmask, l_, rays[5][None, :])
+    else:
+        r_, g_, b_ = _shade_pixels(kind, angle_idx, fx - ti, fz - tj,
+                                   pk["any_x"], inv_fw=inv_fw,
+                                   variant=variant)
+        r_ = where(in_grid, r_, ground[0]) * shade_e
+        g_ = where(in_grid, g_, ground[1]) * shade_e
+        b_ = where(in_grid, b_, ground[2]) * shade_e
+        r_ = where(gmask, r_, horizon[0] * skyf)
+        g_ = where(gmask, g_, horizon[1] * skyf)
+        b_ = where(gmask, b_, horizon[2] * skyf)
 
     # ---- object pass ------------------------------------------------------
     t_best = where(gmask, t_g, 1e30)
@@ -414,27 +633,54 @@ def render_frames_reference(blob, pk):
         t_env = step_s * scene["dt"]
         green = (torch.floor(t_env * scene["inv_tl"]).to(i32) % 2) > 0
         lamp_pk = where(green, LAMP_GREEN, LAMP_RED).to(i32)    # [B, 1]
-        lw = (scene["lwx"], scene["lwy"], scene["lwz"])
+        lamp_l = where(green, scene["l_green"], scene["l_red"])
         dlw = dx * lw[0] + dy * lw[1] + dz * lw[2]
-        inv_dy = F_p
         of, oi = pk["of"].cpu(), pk["oi"].cpu().tolist()
         pf, pi = pk["pf"].cpu(), pk["pi"].cpu().tolist()
-        dev = blob.device
         for o in range(pk["n_objs"]):
             ov = of[o].to(dev)                       # 0-d f32 scalars
-            p0_, n_p, has_box = oi[o][OI_P0], oi[o][OI_NP], oi[o][OI_BOX]
-            dxo = ov[O_X] - eye0
-            dzo = ov[O_Z] - eye2
+            p0_, n_p, has_box, npc, opt, wig, pred = oi[o]
+            if npc >= 0:
+                # moving NPC: pose from the blob's NPC rows
+                nbase = sk.F_NPC_BASE + sk.NPC_ROWS * npc
+                ox, oz = col(nbase), col(nbase + 1)
+                a_npc = col(nbase + 2)
+                if wig:
+                    a_npc = a_npc + Cc.DUCKIE_WIGGLE * sincos(
+                        Cc.DUCKIE_WIGGLE_FREQ * t_env)[0]
+                s_r, c_r = sincos(-a_npc)
+            else:
+                ox, oz = ov[O_X], ov[O_Z]
+                s_r, c_r = ov[O_SR], ov[O_CR]
+            oy = ov[O_Y]
+            if npc >= 0 or dr:
+                # the per-env light in the object's model space
+                lm = (lw[0] * c_r + lw[2] * s_r, lw[1],
+                      lw[2] * c_r - lw[0] * s_r)
+            else:
+                lm = (ov[O_LMX], ov[O_LMY], ov[O_LMZ])
+            dxo = ox - eye0
+            dzo = oz - eye2
             dist2 = dxo * dxo + dzo * dzo            # [B, 1]
+            # gates beyond the distance: the optional-object bit, the
+            # NPC's view half-plane
+            obj_on = None
+            if opt >= 0:
+                obj_on = ((visbits >> opt) & 1) > 0
+            if pred:
+                hp = dxo * c_a - dzo * s_a > -ov[O_RV]
+                obj_on = hp if obj_on is None else obj_on & hp
             act = dist2 < ov[O_CULL2]
+            if obj_on is not None:
+                act = act & obj_on
             if has_box:
-                ex = (eye0 - ov[O_X]) * ov[O_INVS]
-                ey = (eye1 - ov[O_Y]) * ov[O_INVS]
-                ez = (eye2 - ov[O_Z]) * ov[O_INVS]
-                emx = ex * ov[O_CR] + ez * ov[O_SR]
-                emz = ez * ov[O_CR] - ex * ov[O_SR]
-                dmx = dx * ov[O_CR] + dz * ov[O_SR]
-                dmz = dz * ov[O_CR] - dx * ov[O_SR]
+                ex = (eye0 - ox) * ov[O_INVS]
+                ey = (eye1 - oy) * ov[O_INVS]
+                ez = (eye2 - oz) * ov[O_INVS]
+                emx = ex * c_r + ez * s_r
+                emz = ez * c_r - ex * s_r
+                dmx = dx * c_r + dz * s_r
+                dmz = dz * c_r - dx * s_r
 
                 def safe_inv(dm):
                     return 1.0 / where(torch.abs(dm) < 1e-9,
@@ -442,13 +688,18 @@ def render_frames_reference(blob, pk):
 
                 inv_dmx = safe_inv(dmx)
                 inv_dmz = safe_inv(dmz)
-                wx = where(dmx >= 0.0, ov[O_LMX], -ov[O_LMX])
-                wy = where(dy >= 0.0, ov[O_LMY], -ov[O_LMY])
-                wz = where(dmz >= 0.0, ov[O_LMZ], -ov[O_LMZ])
+                wx = where(dmx >= 0.0, lm[0], -lm[0])
+                wy = where(dy >= 0.0, lm[1], -lm[1])
+                wz = where(dmz >= 0.0, lm[2], -lm[2])
             for j in range(p0_, p0_ + n_p):
                 pv = pf[j].to(dev)
                 is_box, lamp, color, own = pi[j]
-                gate = (dist2 < pv[P_CD2]) if own else act
+                if own:
+                    gate = dist2 < pv[P_CD2]
+                    if obj_on is not None:
+                        gate = gate & obj_on
+                else:
+                    gate = act
                 if is_box:
                     ocx = emx - pv[P_CX]
                     ocy = ey - pv[P_CY]
@@ -471,9 +722,17 @@ def render_frames_reference(blob, pk):
                     yb = (n2 >= n3) & ~xb
                     dv = where(xb, wx, where(yb, wy, wz))
                 else:
-                    ocx = eye0 - pv[P_CWX]
+                    if npc >= 0:
+                        # world centre of an NPC's sphere, in float32
+                        cwx = ox + ov[O_SC] * (pv[P_CX] * c_r
+                                               - pv[P_CZ] * s_r)
+                        cwz = oz + ov[O_SC] * (pv[P_CX] * s_r
+                                               + pv[P_CZ] * c_r)
+                    else:
+                        cwx, cwz = pv[P_CWX], pv[P_CWZ]
+                    ocx = eye0 - cwx
                     ocy = eye1 - pv[P_CWY]
-                    ocz = eye2 - pv[P_CWZ]
+                    ocz = eye2 - cwz
                     bq = ocx * dx + ocy * dy + ocz * dz
                     cq = ocx * ocx + ocy * ocy + ocz * ocz - pv[P_RW2]
                     disc = bq * bq - cq
@@ -482,26 +741,32 @@ def render_frames_reference(blob, pk):
                     t_w = t_m
                     k1 = ocx * lw[0] + ocy * lw[1] + ocz * lw[2]
                     dv = (k1 + t_m * dlw) * pv[P_NDV]
-                pkc = lamp_pk if lamp else torch.tensor(color, dtype=i32,
-                                                        device=dev)
                 closer = gate & ok_p & (t_w < t_best)
-                pk_ = where(closer, pkc, pk_)
-                dv_ = where(closer, dv, dv_)
+                if gray:
+                    sh = amb_e + kd_e * torch.clamp(dv, min=0.0)
+                    lum = lamp_l if lamp else pv[P_LUMA]
+                    l_ = where(closer, lum * sh, l_)
+                else:
+                    pkc = lamp_pk if lamp else torch.tensor(
+                        color, dtype=i32, device=dev)
+                    pk_ = where(closer, pkc, pk_)
+                    dv_ = where(closer, dv, dv_)
                 t_best = where(closer, t_w, t_best)
-        obj_m = pk_ >= 0
-        shn = (scene["ambient"] + scene["k_diff"]
-               * torch.clamp(dv_, min=0.0)) * (1.0 / 255.0)
-        r_ = where(obj_m, ((pk_ >> 16) & 255).to(f32) * shn, r_)
-        g_ = where(obj_m, ((pk_ >> 8) & 255).to(f32) * shn, g_)
-        b_ = where(obj_m, (pk_ & 255).to(f32) * shn, b_)
+        if not gray:
+            obj_m = pk_ >= 0
+            shn = (amb_e + kd_e * torch.clamp(dv_, min=0.0)) * (1.0 / 255.0)
+            r_ = where(obj_m, ((pk_ >> 16) & 255).to(f32) * shn, r_)
+            g_ = where(obj_m, ((pk_ >> 8) & 255).to(f32) * shn, g_)
+            b_ = where(obj_m, (pk_ & 255).to(f32) * shn, b_)
 
     def to_u8(xv):
         if not pk["no_clamp"]:
             xv = torch.clamp(xv, 0.0, 1.0)
         return (xv * 255.0 + 0.5).to(i32).to(torch.uint8)
 
-    out = torch.stack([to_u8(r_), to_u8(g_), to_u8(b_)], dim=1)
-    return out.reshape(B, 3, H * W // LANE_N, LANE_N)
+    planes = [l_] if gray else [r_, g_, b_]
+    out = torch.stack([to_u8(v.expand(B, P)) for v in planes], dim=1)
+    return out.reshape(B, len(planes), P // LANE_N, LANE_N)
 
 
 def _lib():
@@ -510,22 +775,24 @@ def _lib():
     lib = _build.load("blob_render")
     fn = lib.dtown_blob_render
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def render_frames_from_blob(blob, pk):
-    """Batched RGB render from the state blob [NF, B] with the packed plan
+    """Batched render from the state blob [nf, B] with the packed plan
     ``pk`` (pack_plan, on the blob's device). Returns uint8 planes
-    [B, 3, S, 128], byte-identical to [B, 3, H, W].
+    [B, C, S, 128] (C = 1 luma plane under grayscale, else 3),
+    byte-identical to [B, C, H, W].
 
     A CUDA blob goes through the hand-written kernel (csrc/blob_render.cu)
     and a CPU blob through ``render_frames_reference``."""
+    nf = pk["nf"]
     if blob.dtype != torch.float32 or blob.dim() != 2 \
-            or blob.shape[0] < sk.NF:
-        raise ValueError(f"blob must be float32 [>={sk.NF}, B], got "
+            or blob.shape[0] < nf:
+        raise ValueError(f"blob must be float32 [>={nf}, B], got "
                          f"{tuple(blob.shape)} {blob.dtype}")
     if pk["rays"].device != blob.device:
         raise ValueError("blob and render tables must share one device")
@@ -536,17 +803,18 @@ def render_frames_from_blob(blob, pk):
     blob = blob.contiguous()
     B = blob.shape[1]
     H, W = pk["H"], pk["W"]
-    out = torch.empty((B, 3, H * W // LANE_N, LANE_N), dtype=torch.uint8,
-                      device=blob.device)
+    out = torch.empty((B, pk["C"], H * W // LANE_N, LANE_N),
+                      dtype=torch.uint8, device=blob.device)
     fn = _lib()
     stream = torch.cuda.current_stream(blob.device).cuda_stream
     err = fn(blob.data_ptr(), pk["rays"].data_ptr(), pk["words"].data_ptr(),
              pk["scene"].data_ptr(), pk["of"].data_ptr(),
              pk["oi"].data_ptr(), pk["pf"].data_ptr(), pk["pi"].data_ptr(),
              out.data_ptr(),
-             B, H * W, pk["words"].shape[0], pk["Hg"], pk["Wg"],
+             B, H, W, pk["words"].shape[0], pk["Hg"], pk["Wg"],
              pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
-             int(pk["no_clamp"]), LAMP_GREEN, LAMP_RED, stream)
+             int(pk["no_clamp"]), LAMP_GREEN, LAMP_RED, int(pk["dr"]),
+             int(pk["gray"]), int(pk["n_npc"] > 0), pk["drb"], stream)
     if err != 0:
         raise RuntimeError(f"blob render kernel launch failed: CUDA error "
                            f"{err}")

@@ -268,8 +268,9 @@ def pack_row_scene(cfg, maps):
     """Everything the row-fed render needs that does not change per step,
     on the map's device (dict): frame and grid sizes, the branch (K3 when
     the static scene builds), K3's scene tables or K4's prim matrix, and
-    the per-slot cull distances. The options not ported (multimaps, DR,
-    fisheye) are refused before, by env.check_scope."""
+    the per-slot cull distances. The options not ported (multimaps,
+    fisheye, triangles) are refused before, by env.check_scope and
+    env.check_row_render_scope."""
     host = maps.numpy()
     dev = maps.obj_pos.device
     H, W = cfg.camera_height, cfg.camera_width

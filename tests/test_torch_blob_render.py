@@ -2,6 +2,7 @@
 package: its Pallas blob render kernel in interpret mode, its XLA
 ray-caster, and the XLA golden images. The CUDA kernel is held against the
 same plain version on the card by chip_smoke.py."""
+import dataclasses
 import os
 
 import numpy as np
@@ -157,15 +158,20 @@ def test_tile_shading_helpers_match_reference():
 
 
 def test_render_scope_raises():
+    """What the blob render does not take yet: triangle meshes and stacked
+    multimaps (plan), fisheye (packing). Moving NPCs, domain
+    randomization and grayscale pack."""
     maps = load_map("loop_obstacles")
-    for cfg in (EnvConfig(domain_rand=True),
-                EnvConfig(mesh_fidelity="triangles")):
-        with pytest.raises(NotImplementedError):
-            br.build_render_plan(cfg, maps)
-    with pytest.raises(NotImplementedError):
-        br.build_render_plan(EnvConfig(), load_map("loop_pedestrians"))
+    with pytest.raises(NotImplementedError, match="triangle"):
+        br.build_render_plan(EnvConfig(mesh_fidelity="triangles"), maps)
+    stacked = dataclasses.replace(
+        maps, tile_kind=np.stack([maps.tile_kind, maps.tile_kind]))
+    with pytest.raises(NotImplementedError, match="multimaps"):
+        br.build_render_plan(EnvConfig(), stacked)
     plan = br.build_render_plan(EnvConfig(), maps)
-    for cfg in (EnvConfig(grayscale=True), EnvConfig(distortion=True)):
-        with pytest.raises(NotImplementedError):
-            br.pack_plan(cfg, plan, "cpu")
-
+    with pytest.raises(NotImplementedError, match="fisheye"):
+        br.pack_plan(EnvConfig(distortion=True), plan, "cpu")
+    cfg = EnvConfig(domain_rand=True, grayscale=True)
+    pk = br.pack_plan(cfg, br.build_render_plan(
+        cfg, load_map("loop_pedestrians")), "cpu")
+    assert pk["dr"] and pk["C"] == 1 and pk["n_npc"] == 3

@@ -2,6 +2,8 @@
 package's Pallas state kernel in interpret mode, on the same blob and
 actions, through auto-resets. The CUDA kernel is held against the same
 plain version on the card by chip_smoke.py."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -110,12 +112,18 @@ def test_state_step_rejects_bad_inputs():
 
 
 def test_state_step_scope_raises():
-    cfg = EnvConfig(domain_rand=True)
-    tables = sk.build_tables(cfg, load_map("small_loop"))
-    with pytest.raises(NotImplementedError):
-        sk.device_tables(cfg, tables, "cpu")
-    npc = EnvConfig()
-    with pytest.raises(NotImplementedError):
-        sk.device_tables(npc, sk.build_tables(
-            npc, load_map("loop_pedestrians")), "cpu")
-
+    """What the state step does not take yet: stacked multimaps and the
+    start-pose overrides. Moving NPCs and domain randomization build."""
+    maps = load_map("small_loop")
+    stacked = dataclasses.replace(
+        maps, tile_kind=np.stack([maps.tile_kind, maps.tile_kind]))
+    with pytest.raises(NotImplementedError, match="multimaps"):
+        sk.build_tables(EnvConfig(), stacked)
+    for cfg in (EnvConfig(start_pose=(1.0, 1.0, 0.0)),
+                EnvConfig(user_tile_start=(1, 1))):
+        with pytest.raises(NotImplementedError, match="start-pose"):
+            sk.build_tables(cfg, maps)
+    dr = EnvConfig(domain_rand=True)
+    dev = sk.device_tables(dr, sk.build_tables(
+        dr, load_map("loop_pedestrians")), "cpu")
+    assert dev["n_npc"] == 3 and dev["nf"] == sk.nf_for(3, True)

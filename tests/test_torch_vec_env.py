@@ -98,7 +98,6 @@ def test_same_seed_same_states():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(renderer="xla"), "renderer='pallas'"),
-    (dict(domain_rand=True), "domain randomization"),
     (dict(distortion=True), "fisheye"),
     (dict(spawn_mode="rejection"), "rejection"),
     (dict(start_pose=(1.0, 1.0, 0.0)), "start_pose"),

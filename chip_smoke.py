@@ -2,16 +2,16 @@
 """Smoke run of dtown_torch on one NVIDIA card: builds the CUDA kernels,
 holds each against its plain torch version, drives the fused rollout
 (the default bench configuration, then moving NPCs, domain randomization,
-grayscale and state observations) and the vectorized step API (make_vec)
-on a static-scene map, a row-fed map and a domain-randomized map, and
-prints what it measured.
+grayscale and state observations, then stacks of maps and the Nav task)
+and the vectorized step API (make_vec) on a static-scene map, a row-fed
+map and a domain-randomized map, and prints what it measured.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi);
   2. build the three kernel sources from dtown_torch/csrc (one nvcc each,
-     in parallel), printing registers and spill;
+     in parallel), printing registers and spill of every specialisation;
   3. the fused RGB rollout on loop_obstacles, 64 envs 32x32, 5 steps, on
      the card vs on the CPU from the same blob;
   4. the fused rollout in each configuration, each with its own launch
@@ -21,10 +21,20 @@ Phases (any failure exits non-zero and prints no result):
      64x64 RGB; (c) bigtown_pedestrians with domain randomization and
      grayscale, 64x64; (d) BASELINE config 2, small_loop grayscale 64x64,
      256 envs; (e) state observations on loop_pedestrians (the state
-     kernel alone). Each first holds both kernels against their plain
-     versions for 12 steps through auto-resets (max_steps=5): discrete
-     rows equal, every row within 1e-5 (measured 0), frames max |diff| 0,
-     the DR rows redrawn and the NPCs re-placed at a reset; then times
+     kernel alone); stacks of maps (stack_maps, env b on member
+     b % n_maps), 64x64 RGB: stack3, BASELINE config 5's maps
+     zigzag_dists/4way/udem1 at its 8192 envs; stack6, the 6-map
+     curriculum stack of scripts/bench_all.sh; stack_npc_dr,
+     town_dyn_duckiebots + udem1 with domain randomization (map-gated
+     NPCs of both kinds, optional objects); nav_stack, the Nav task
+     (make_fused_nav_rollout, goal_in_obs, no shaping as train_ppo.py
+     defaults; its check runs goal-distance shaping 2.0) on stack3's
+     maps. Each first
+     holds both kernels against their plain versions for 12 steps through
+     auto-resets (max_steps=5): discrete rows equal, every row within 1e-5
+     (measured 0), frames max |diff| 0, the DR rows redrawn and the NPCs
+     re-placed at a reset, respawns (and Nav goals, redrawn at resets) on
+     drivable tiles of the env's own map; then times
      the configuration as given (CUDA events, 256 or 64 steps), checks
      its output, traces 32 steps with torch.profiler (device ms per
      launch, idle share), times the plain versions on the timed run's
@@ -73,6 +83,10 @@ K1_OPS_NPC_SAT = 50       # a live footprint (sincos, 4 corners)
 K1_OPS_HASH = 22          # one hashed uniform
 K1_OPS_RESET_DUCKIE = 4 * K1_OPS_HASH + 10   # fresh walk speed
 K1_OPS_RESET_DR = 16 * K1_OPS_HASH + 60      # the DR redraw
+K1_OPS_MAP_GATE = 2       # a stack's map test of one object column
+K1_OPS_NAV = 10           # the goal check (two floors, compares, bonus)
+K1_OPS_NAV_SHAPING = 20   # the goal-distance shaping term
+K1_OPS_RESET_GOAL = K1_OPS_HASH + 8          # the goal redraw
 K2_OPS_PIXEL = 150        # camera, ground hit, tile shading, sky, output
 K2_OPS_DR_PIXEL = 60      # DR: ray basis, 1/sqrt, ground divide, variant hash
 K2_OPS_BOX_PIXEL = 20     # a kept box object's ray in model space, inverses
@@ -82,6 +96,11 @@ K2_OPS_SPHERE = 32        # one sphere primitive
 K2_OPS_OBJECT = 8         # distance, optional-bit and half-plane culls
 K2_OPS_BOX_ENV = 12       # a kept box object's eye in model space
 K2_OPS_NPC_OBJECT = 60    # an NPC's pose, wiggle, sincos, light rotation
+K2_OPS_MAP = 2            # a stack's map test of one object
+
+# BASELINE config 5's maps and scripts/bench_all.sh's 6-map curriculum
+STACK3 = ["zigzag_dists", "4way", "udem1"]
+STACK6 = STACK3 + ["small_loop", "loop_obstacles", "s_bend"]
 # row_render.cu (K3 and K4 share the pixel pass and the primitive test)
 K34_OPS_PIXEL = 175       # NDC ramps, ray normalize, ground, tile, sky, output
 K34_OPS_SLOT = 2          # cull flag test of one object slot
@@ -96,6 +115,42 @@ def nvidia_smi_line():
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_report(log):
+    """One line per compiled kernel of an nvcc -Xptxas -v log: the kernel
+    with its template flags, then its registers and spill stores/loads."""
+    import re
+
+    def kernel_name(mangled):
+        # walk the nested name _ZN<len><id><len><id>... to the identifier
+        # that ends in _kernel, then read its bool template arguments
+        pos = 3 if mangled.startswith("_ZN") else 0
+        while True:
+            m = re.match(r"\d+", mangled[pos:])
+            if not m:
+                return mangled
+            pos += m.end()
+            ident = mangled[pos:pos + int(m.group())]
+            pos += len(ident)
+            if ident.endswith("_kernel"):
+                t = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
+                flags = re.findall(r"Lb([01])E", t.group(1)) if t else []
+                return ident + (f"<{','.join(flags)}>" if flags else "")
+
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "spill" in line and name:
+            spill = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else line.strip()}"
+                       f" registers; {spill}")
+            name, spill = None, ""
+    return out
 
 
 def cuda_ms(fn, n):
@@ -371,8 +426,10 @@ def k2_ops(blob, pk, P):
     (and, under domain randomization, the per-pixel ray and variant hash)
     and the ray tests of the objects and primitives its env's culls keep;
     once per env each object's culls, a kept box's eye in model space, and
-    a moving NPC's pose and light rotation (culled or not). The kernel
-    repeats the per-env work in every thread; the bound counts it once."""
+    a moving NPC's pose and light rotation (culled or not). On a stack an
+    env pays one map test per object and the rest only for its own map's
+    objects. The kernel repeats the per-env work in every thread; the
+    bound counts it once."""
     import torch
     from dtown_torch.geometry import sincos
     from dtown_torch.ops import state_kernel as sk
@@ -391,22 +448,27 @@ def k2_ops(blob, pk, P):
     per_pixel = torch.full_like(eye0, float(
         K2_OPS_PIXEL + (K2_OPS_DR_PIXEL if pk["dr"] else 0)))
     per_env = torch.zeros_like(eye0)
+    stack = pk["n_maps"] > 1
+    mid = b[sk.F_MAPID].to(torch.int64)
     for o in range(pk["n_objs"]):
         npc, opt = int(oi[o, br.OI_NPC]), int(oi[o, br.OI_OPT])
+        own = (mid == int(oi[o, br.OI_MAP])).double() if stack else 1.0
+        if stack:
+            per_env += K2_OPS_MAP
         if npc >= 0:
             base = sk.F_NPC_BASE + sk.NPC_ROWS * npc
             ox, oz = b[base].double(), b[base + 1].double()
-            per_env += K2_OPS_NPC_OBJECT
+            per_env += own * K2_OPS_NPC_OBJECT
         else:
             ox, oz = of[o, br.O_X], of[o, br.O_Z]
         d2 = (ox - eye0) ** 2 + (oz - eye2) ** 2
-        act = d2 < of[o, br.O_CULL2]
+        act = (d2 < of[o, br.O_CULL2]) & (own > 0.5 if stack else True)
         if opt >= 0:
             act = act & (((vis >> opt) & 1) > 0)
         if int(oi[o, br.OI_PRED]):
             act = act & ((ox - eye0) * c - (oz - eye2) * s
                          > -of[o, br.O_RV])
-        per_env += K2_OPS_OBJECT
+        per_env += own * K2_OPS_OBJECT
         if oi[o, br.OI_BOX]:
             per_env += act.double() * K2_OPS_BOX_ENV
             per_pixel += act.double() * K2_OPS_BOX_PIXEL
@@ -420,9 +482,12 @@ def k2_ops(blob, pk, P):
 
 def k1_ops(blob_out, st):
     """Operations the state step did for this output blob: per env the
-    agent and one SAT test per object column; per NPC and substep its
-    state machine (two lane queries for a duckiebot); per reset env the
-    NPCs' re-placement and the DR redraw."""
+    agent and one SAT test per object column (on a stack: a map test per
+    column, and the SAT only for the env's own map's columns); per NPC and
+    substep its state machine (two lane queries for a duckiebot; the
+    kernel steps every NPC in every env); the Nav goal check; per reset
+    env the NPCs' re-placement, the DR redraw and the goal redraw."""
+    import torch
     from dtown_torch.ops import state_kernel as sk
 
     B = blob_out.shape[1]
@@ -430,20 +495,32 @@ def k1_ops(blob_out, st):
     kinds = st["npc"][sk.NPC_KIND].tolist()[:st["n_npc"]]
     n_duckie = sum(1 for k in kinds if int(k) == sk.NPC_DUCKIE)
     n_bot = len(kinds) - n_duckie
-    per_env = (K1_OPS_ENV + K1_OPS_OBJECT * st["M"]
+    if st["n_maps"] > 1:
+        cmap = st["colmap"][2, :st["M"]].cpu()
+        mid = blob_out[sk.F_MAPID].cpu().to(torch.int64)
+        own = int((mid[:, None] == cmap[None, :]).sum())
+        sat = K1_OPS_OBJECT * own + K1_OPS_MAP_GATE * st["M"] * B
+    else:
+        sat = K1_OPS_OBJECT * st["M"] * B
+    per_env = (K1_OPS_ENV
                + st["frame_skip"] * (n_duckie * K1_OPS_DUCKIE
                                      + n_bot * K1_OPS_BOT)
                + K1_OPS_NPC_SAT * len(kinds))
+    if st["nav"]:
+        coef = float(st["prm"][sk._PARAM_NAMES.index("nav_coef")])
+        per_env += K1_OPS_NAV + (K1_OPS_NAV_SHAPING if coef else 0)
     per_reset = n_duckie * K1_OPS_RESET_DUCKIE + (
         K1_OPS_RESET_DR + K1_OPS_HASH * st["n_opt"]
-        if st["domain_rand"] else 0)
-    return float(B * per_env + n_done * per_reset)
+        if st["domain_rand"] else 0) + (
+        K1_OPS_RESET_GOAL if st["nav"] else 0)
+    return float(B * per_env + sat + n_done * per_reset)
 
 
 def k1_bytes(st, nf, B):
     tab = sum(st[k].numel() * st[k].element_size()
               for k in ("words", "ct", "ot", "bank", "prm", "npc", "colmap",
-                        "drp"))
+                        "drp", "n_ok_v", "n_driv")
+              ) + (st["goal"].numel() * 4 if st["nav"] else 0)
     return 2 * nf * B * 4 + 2 * B * 4 + tab
 
 
@@ -451,36 +528,79 @@ def k2_bytes(pk, B, P):
     tab = sum(pk[k].numel() * pk[k].element_size()
               for k in ("words", "scene", "of", "oi", "pf", "pi"))
     rays = 0 if pk["dr"] else pk["rays"].numel() * 4
-    rows = 5 + pk["n_npc"] * 3 + (16 if pk["dr"] else 0)
+    rows = (5 + pk["n_npc"] * 3 + (16 if pk["dr"] else 0)
+            + (1 if pk["n_maps"] > 1 else 0))
     return B * pk["C"] * P + rows * B * 4 + tab + rays
 
 
-def fused_phase(tag, map_name, dev, smi, B, S, n_timed, **kw):
+def make_rollout(cfg, maps, B, dev, nav):
+    """(init_blob, fused_step, rollout) of the fused rollout, or of the
+    fused Nav rollout with the goal in the observation."""
+    import dtown_torch
+
+    if nav:
+        return dtown_torch.make_fused_nav_rollout(cfg, maps, B,
+                                                  goal_in_obs=True, device=dev)
+    return dtown_torch.make_fused_rollout(cfg, maps, B, device=dev)
+
+
+def on_own_map(blob, envs, drivable, ts, rows):
+    """Whether the tiles (rows = (x, z) world rows, or (i, j) tile rows
+    when ts is None) of the given envs are drivable tiles of each env's own
+    map; drivable is bool [n_maps, H, W] on the blob's device."""
+    import torch
+    from dtown_torch.ops import state_kernel as sk
+
+    x, z = blob[rows[0]][envs], blob[rows[1]][envs]
+    i = torch.floor(x / ts) if ts else x
+    j = torch.floor(z / ts) if ts else z
+    i, j = i.long(), j.long()
+    mi = blob[sk.F_MAPID][envs].long()
+    H, W = drivable.shape[1:]
+    ok = (i >= 0) & (i < W) & (j >= 0) & (j < H)
+    return bool((ok & drivable[mi, j.clamp(0, H - 1),
+                               i.clamp(0, W - 1)]).all())
+
+
+def fused_phase(tag, map_spec, dev, smi, B, S, n_timed, nav=False,
+                check=None, **kw):
     """One configuration of the fused rollout on the card: the state
     kernel and the blob render against their plain versions through
     auto-resets (max_steps=5), then a timed run of the configuration as
     given, a profiler window, the plain versions' times and the bounds.
-    Returns the kernels' rows of the JSON line ("bench" keeps the bare
-    kernel names)."""
+    map_spec is a map name or a list of names (a stack); nav runs the Nav
+    task with the goal in the observation; ``check`` holds EnvConfig
+    options that only the kernel-vs-plain check takes (a branch that the
+    timed traffic leaves off). Returns the kernels' rows of the JSON line
+    ("bench" keeps the bare kernel names)."""
     import torch
     import dtown_torch
     from dtown_torch.ops import state_kernel as sk
     from dtown_torch.render import blob_raster as br
 
     state_only = kw.get("obs_type") == "state"
-    maps = dtown_torch.load_map(map_name)
+    if isinstance(map_spec, str):
+        maps = dtown_torch.load_map(map_spec)
+    else:
+        maps = dtown_torch.stack_maps(map_spec)
+    drivable = torch.as_tensor(maps.drivable, device=dev)
+    if not maps.is_stack:
+        drivable = drivable[None]
+    ts = float(maps.tile_size.reshape(-1)[0])
     # -- kernels vs plain versions through auto-resets
     cfg_c = dtown_torch.EnvConfig(camera_width=S, camera_height=S,
-                                  **dict(kw, max_steps=5))
-    ib, fs, _ = dtown_torch.make_fused_rollout(cfg_c, maps, B, device=dev)
+                                  **dict(kw, max_steps=5, **(check or {})))
+    ib, fs, _ = make_rollout(cfg_c, maps, B, dev, nav)
     st, pk = fs.tables, fs.pack
+    navb = sk.nav_base(st["n_npc"], st["domain_rand"])
     blob = ib(torch.Generator(device=dev).manual_seed(11))
     gen = torch.Generator(device=dev).manual_seed(12)
     drb = sk.dr_base(st["n_npc"])
     discrete = (sk.F_DONE, sk.F_STEP, sk.F_RNG, sk.F_COLL, sk.F_INLANE,
-                sk.F_OINLANE)
+                sk.F_OINLANE, sk.F_MAPID) + ((navb, navb + 1) if nav else ())
     k1_err = 0.0
-    n_done = redrawn = replaced = 0
+    n_done = redrawn = replaced = goals = 0
+    own_map = True
     for _ in range(12):
         act = torch.rand((B, 2), generator=gen, device=dev) * 2.0 - 1.0
         ref = sk.state_step_reference(blob, act[:, 0], act[:, 1], st)
@@ -499,13 +619,28 @@ def fused_phase(tag, map_name, dev, smi, B, S, n_timed, **kw):
         for i, npc in enumerate(st["npcs"]):
             row = out[sk.F_NPC_BASE + sk.NPC_ROWS * i][done]
             replaced += int((row == float(npc["x0"])).sum())
+        # respawns (and fresh goals) on drivable tiles of the env's map
+        own_map &= on_own_map(out, done, drivable, ts,
+                              (sk.F_POS_X, sk.F_POS_Z))
+        if st["nav"]:
+            goals += int((out[navb:navb + 2][:, done]
+                          != blob[navb:navb + 2][:, done]).any(0).sum())
+            own_map &= on_own_map(out, done, drivable, None,
+                                  (navb, navb + 1))
+        if st["n_maps"] > 1 and not torch.equal(
+                out[sk.F_MAPID], blob[sk.F_MAPID]):
+            raise AssertionError(f"{tag}: an env changed maps")
         blob = out
     print(f"{tag}: state kernel vs plain, 12 steps x {B} envs: {n_done} "
           f"auto-resets, DR rows redrawn in {redrawn} envs, NPCs "
-          f"re-placed {replaced} times; max |diff| {k1_err:.3g}")
+          f"re-placed {replaced} times, goals redrawn {goals}; respawns "
+          f"and goals on the env's own map {own_map}; max |diff| "
+          f"{k1_err:.3g}")
     if n_done <= 0 or (st["domain_rand"] and redrawn <= 0) or (
-            st["n_npc"] and replaced <= 0):
+            st["n_npc"] and replaced <= 0) or (st["nav"] and goals <= 0):
         raise AssertionError(f"{tag}: no auto-reset, redraw or re-placement")
+    if not own_map:
+        raise AssertionError(f"{tag}: a respawn or goal left its env's map")
     if k1_err > 1e-5:
         # the pose bar; the rows agree bit for bit unless a float64 FMA
         # emulation of the plain version meets a double-rounding tie
@@ -526,8 +661,7 @@ def fused_phase(tag, map_name, dev, smi, B, S, n_timed, **kw):
     del fs, ib
     # -- the configuration as given, timed
     cfg = dtown_torch.EnvConfig(camera_width=S, camera_height=S, **kw)
-    init_blob, fused_step, rollout = dtown_torch.make_fused_rollout(
-        cfg, maps, B, device=dev)
+    init_blob, fused_step, rollout = make_rollout(cfg, maps, B, dev, nav)
     st, pk = fused_step.tables, fused_step.pack
     blob = init_blob(torch.Generator(device=dev).manual_seed(1))
     actions = torch.rand((B, 2), generator=torch.Generator(
@@ -546,10 +680,17 @@ def fused_phase(tag, map_name, dev, smi, B, S, n_timed, **kw):
     rate = B * n_timed / (ms / 1e3)
     _, out, obs = fused_step(blob, actions)
     torch.cuda.synchronize()
-    print(f"{tag}: fused rollout {map_name} {kw} {B} envs {S}x{S}: "
-          f"{n_timed} steps in {ms:.2f} ms = {rate:.6g} env-steps/s "
-          f"({ms / n_timed:.4f} ms/step) on {smi}; launches {launches}")
+    print(f"{tag}: fused {'Nav ' if nav else ''}rollout {map_spec} {kw} "
+          f"{B} envs {S}x{S}: {n_timed} steps in {ms:.2f} ms = {rate:.6g} "
+          f"env-steps/s ({ms / n_timed:.4f} ms/step) on {smi}; launches "
+          f"{launches}")
     want = (B, 11) if state_only else (B, pk["C"], S * S // 128, 128)
+    if nav:
+        goal = obs[1]
+        obs = obs[0]
+        if not (tuple(goal.shape) == (B, 3)
+                and bool(torch.isfinite(goal).all())):
+            raise AssertionError(f"{tag}: Nav goal features malformed")
     if not (tuple(obs.shape) == want and bool(torch.isfinite(blob).all())
             and bool(torch.isfinite(out.reward).all())
             and float(obs.float().std()) > (0.1 if state_only else 5.0)):
@@ -648,9 +789,8 @@ def main():
     logs = _build.build_all()
     print(f"build: {time.time() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_report(log):
+            print(f"  {name}: {line}")
 
     # ---- fused rollout: card vs CPU on a small input -----------------------------
     maps = dtown_torch.load_map("loop_obstacles")
@@ -688,7 +828,15 @@ def main():
              dict(domain_rand=True, grayscale=True)),
             ("baseline2", "small_loop", 256, 64, 64, dict(grayscale=True)),
             ("state", "loop_pedestrians", 4096, 64, 256,
-             dict(obs_type="state"))):
+             dict(obs_type="state")),
+            ("stack3", STACK3, 8192, 64, 128, {}),
+            ("stack6", STACK6, 4096, 64, 64, {}),
+            ("stack_npc_dr", ["town_dyn_duckiebots", "udem1"], 4096, 64,
+             64, dict(domain_rand=True)),
+            # Nav at train_ppo.py's default (no shaping); the check also
+            # drives the shaping branch
+            ("nav_stack", STACK3, 4096, 64, 64,
+             dict(nav=True, check=dict(nav_shaping_coef=2.0)))):
         kernels += fused_phase(tag, map_name, dev, smi, B, S, n_t, **kw)
 
     # ---- the step path: vector env on the card vs the CPU ---------------------------

@@ -1,18 +1,21 @@
 """dtown_torch: the Duckietown environment engine on PyTorch and CUDA.
 
 The port of the JAX package ``dtown`` to an NVIDIA H100: the fused
-rollout (state step + blob render; moving NPCs, domain randomization,
-RGB, grayscale or state observations) and the vectorized step API
-(``make_vec``: batched physics + the row-fed render) run through
-hand-written CUDA kernels (csrc/), each with a plain torch version that
-the CPU runs.
+rollout (state step + blob render; one map or a stack of maps from
+``stack_maps``, moving NPCs, domain randomization, RGB, grayscale or state
+observations, and the Nav task with ``make_fused_nav_rollout``) and the
+vectorized step API (``make_vec``: batched physics + the row-fed render,
+single maps) run through hand-written CUDA kernels (csrc/), each with a
+plain torch version that the CPU runs.
 """
-from dtown_torch.map_loader import load_map
-from dtown_torch.ops.fused_env import make_fused_rollout
+from dtown_torch.map_loader import load_map, stack_maps
+from dtown_torch.ops.fused_env import make_fused_nav_rollout, \
+    make_fused_rollout
 from dtown_torch.types import EnvConfig, EnvState, StepOutput
 
 __all__ = ["EnvConfig", "EnvState", "StepOutput", "load_map",
-           "make_fused_rollout", "make_vec"]
+           "make_fused_nav_rollout", "make_fused_rollout", "make_vec",
+           "stack_maps"]
 
 
 def make_vec(map_name, num_envs: int, device="cuda", **kwargs):

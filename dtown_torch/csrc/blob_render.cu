@@ -4,7 +4,8 @@
 // _make_blob_kernel (launched by render_frames_from_blob): RGB or one luma
 // plane, static rays or (domain randomization) per-env rays, static
 // objects, moving NPCs posed from the blob rows, optional objects gated by
-// the env's visibility bits. The plain version is
+// the env's visibility bits; one map or a stack of maps. The plain
+// version is
 // dtown_torch/render/blob_raster.py::render_frames_reference; this file
 // keeps its float32 operation order.
 //
@@ -31,10 +32,19 @@
 //  * The scene is not compiled into the kernel as on the TPU: the plan
 //    arrives as flat float/int tables (objects, primitives) that every
 //    thread walks in the same order, so one binary serves every map.
-//  * The mode flags (domain randomization, grayscale, moving NPCs) are
-//    template parameters: eight specialised kernels, so each path keeps
+//  * The mode flags (domain randomization, grayscale, moving NPCs, a stack
+//    of maps) are template parameters, so each path keeps
 //    only its own registers (the static RGB path compiles as it did
 //    before the other paths joined).
+//  * A stack of maps: each block reads its env's map row once, offsets its
+//    word index by mid * npw (the stacked words are the members' segments)
+//    and skips every object of another member with a block-uniform branch.
+//    A skipped object never competes for the nearest hit; the TPU kernel
+//    gates it by folding t * inf, whose finite predecessor let another
+//    map's tall objects bleed into the sky. The stack is a fourth template
+//    flag (sixteen kernels): as runtime arguments it raised the static RGB
+//    kernel's registers from 48 to 56 and its time on one map by 8.8% on
+//    an H100, so a single map compiles without it.
 //  * The tile kind is one indexed word load instead of a select chain.
 //  * Ground color is computed in float32 and quantized once, like the
 //    reference's float path. Output is u8 [B, C, H*W], byte-identical to
@@ -52,7 +62,7 @@ namespace {
 constexpr int THREADS = 256;
 // blob rows
 constexpr int F_POS_X = 0, F_POS_Y = 1, F_POS_Z = 2, F_ANGLE = 3;
-constexpr int F_STEP = 7, F_NPC_BASE = 27, NPC_ROWS = 5;
+constexpr int F_STEP = 7, F_MAPID = 26, F_NPC_BASE = 27, NPC_ROWS = 5;
 // DR rows, relative to dr_base
 constexpr int DR_FOV = 0, DR_CAMH = 1, DR_CAMA = 2, DR_CAMF = 3, DR_LX = 4;
 constexpr int DR_AMB = 7, DR_GR = 8, DR_HR = 11, DR_TEXSEED = 14;
@@ -66,12 +76,12 @@ constexpr int S_LROAD = 24, S_LGRASS = 25, S_LFLOOR = 26, S_LY = 27;
 constexpr int S_LW_ = 28, S_AOTHER = 29, S_AGRASS = 30, S_AROAD = 31;
 constexpr int S_LOUT = 32, S_LGREEN = 33, S_LRED = 34;
 // object table (blob_raster.py O_*, OI_*)
-constexpr int OBJ_F = 12, OBJ_I = 7;
+constexpr int OBJ_F = 12, OBJ_I = 8;
 constexpr int O_X = 0, O_Y = 1, O_Z = 2, O_SR = 3, O_CR = 4, O_INVS = 5;
 constexpr int O_SC = 6, O_LMX = 7, O_LMY = 8, O_LMZ = 9, O_CULL2 = 10;
 constexpr int O_RV = 11;
 constexpr int OI_P0 = 0, OI_NP = 1, OI_BOX = 2, OI_NPC = 3, OI_OPT = 4;
-constexpr int OI_WIG = 5, OI_PRED = 6;
+constexpr int OI_WIG = 5, OI_PRED = 6, OI_MAP = 7;
 // primitive table (P_*, PI_*)
 constexpr int PRIM_F = 13, PRIM_I = 4;
 constexpr int P_CX = 0, P_CY = 1, P_CZ = 2, P_P0 = 3, P_P1 = 4, P_P2 = 5;
@@ -89,6 +99,7 @@ struct Scene {
   const int* pi;       // [n_prims, PRIM_I]
   int P, W, n_words, Hg, Wg, n_objs;
   int aa, any_x, no_clamp, lamp_green, lamp_red, drb;
+  int n_maps, npw;     // a stack's member count and word segment
 };
 
 __device__ __forceinline__ float safe_inv(float dm) {
@@ -146,7 +157,7 @@ __device__ __forceinline__ float noise_amp(int kind, const float* sc) {
 // DR, GRAY and NPC (the plan has moving NPCs) are compile-time: each
 // combination compiles to its own kernel, so the static RGB path carries
 // no register cost of the others
-template <bool DR, bool GRAY, bool NPC>
+template <bool DR, bool GRAY, bool NPC, bool MULTI>
 __global__ void __launch_bounds__(THREADS)
 blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
                    unsigned char* __restrict__ out) {
@@ -165,6 +176,8 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
   const float pz_s = ROW(F_POS_Z);
   const float ang_s = ROW(F_ANGLE);
   const float step_s = ROW(F_STEP);
+  // the env's member of a stack (0 on one map)
+  const int mid = MULTI ? static_cast<int>(ROW(F_MAPID)) : 0;
   float s_a, c_a;
   dt_sincos(ang_s, &s_a, &c_a);
   float camh, camf, lwx, lwy, lwz, amb, kd, shade, gr, gg, gb, hr, hg, hb;
@@ -274,7 +287,7 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
       static_cast<uint32_t>(static_cast<int>(tj))
           * static_cast<uint32_t>(s.Wg)
       + static_cast<uint32_t>(static_cast<int>(ti)));
-  const int widx = tid >> 2;
+  const int widx = MULTI ? mid * s.npw + (tid >> 2) : tid >> 2;
   const int word = (widx >= 0 && widx < s.n_words) ? __ldg(s.words + widx)
                                                     : __ldg(s.words);
   const int byte = (word >> ((tid & 3) << 3)) & 0xFF;
@@ -331,6 +344,8 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
     for (int o = 0; o < s.n_objs; ++o) {
       const float* ov = s.of + o * OBJ_F;
       const int* oiv = s.oi + o * OBJ_I;
+      // another member's object: skipped whole (uniform across the block)
+      if (MULTI && __ldg(oiv + OI_MAP) != mid) continue;
       const int npc = NPC ? __ldg(oiv + OI_NPC) : -1;
       float ox, oz, s_r, c_r;
       if (npc >= 0) {
@@ -491,26 +506,38 @@ extern "C" int dtown_blob_render(const float* blob, const float* rays,
                                  int n_words, int Hg, int Wg, int n_objs,
                                  int aa, int any_x, int no_clamp,
                                  int lamp_green, int lamp_red, int dr,
-                                 int gray, int npc, int drb, void* stream) {
+                                 int gray, int npc, int drb, int n_maps,
+                                 int npw, void* stream) {
   const int P = H * W;
   Scene s{rays, words, scene, of, oi, pf, pi, P, W, n_words, Hg, Wg,
-          n_objs, aa, any_x, no_clamp, lamp_green, lamp_red, drb};
+          n_objs, aa, any_x, no_clamp, lamp_green, lamp_red, drb, n_maps,
+          npw};
   const dim3 grid(B, (P + THREADS - 1) / THREADS);
   auto st = static_cast<cudaStream_t>(stream);
-  // dr, gray and npc (the plan has moving NPCs) pick the specialisation
-  switch ((dr ? 4 : 0) | (gray ? 2 : 0) | (npc ? 1 : 0)) {
-#define DT_LAUNCH(k, D, G, N)                                            \
+  // dr, gray, npc (the plan has moving NPCs) and a stack pick the
+  // specialisation
+  switch ((dr ? 8 : 0) | (gray ? 4 : 0) | (npc ? 2 : 0) | (n_maps > 1)) {
+#define DT_LAUNCH(k, D, G, N, M_)                                        \
   case k:                                                                \
-    blob_render_kernel<D, G, N><<<grid, THREADS, 0, st>>>(blob, B, s, out); \
+    blob_render_kernel<D, G, N, M_><<<grid, THREADS, 0, st>>>(blob, B, s, \
+                                                             out);       \
     break;
-    DT_LAUNCH(0, false, false, false)
-    DT_LAUNCH(1, false, false, true)
-    DT_LAUNCH(2, false, true, false)
-    DT_LAUNCH(3, false, true, true)
-    DT_LAUNCH(4, true, false, false)
-    DT_LAUNCH(5, true, false, true)
-    DT_LAUNCH(6, true, true, false)
-    DT_LAUNCH(7, true, true, true)
+    DT_LAUNCH(0, false, false, false, false)
+    DT_LAUNCH(1, false, false, false, true)
+    DT_LAUNCH(2, false, false, true, false)
+    DT_LAUNCH(3, false, false, true, true)
+    DT_LAUNCH(4, false, true, false, false)
+    DT_LAUNCH(5, false, true, false, true)
+    DT_LAUNCH(6, false, true, true, false)
+    DT_LAUNCH(7, false, true, true, true)
+    DT_LAUNCH(8, true, false, false, false)
+    DT_LAUNCH(9, true, false, false, true)
+    DT_LAUNCH(10, true, false, true, false)
+    DT_LAUNCH(11, true, false, true, true)
+    DT_LAUNCH(12, true, true, false, false)
+    DT_LAUNCH(13, true, true, false, true)
+    DT_LAUNCH(14, true, true, true, false)
+    DT_LAUNCH(15, true, true, true, true)
 #undef DT_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());

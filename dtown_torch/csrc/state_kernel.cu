@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel dtown/ops/state_kernel.py::
 // make_state_kernel (launched by state_step_pallas): the agent, the moving
 // NPCs (walking duckies, pure-pursuit duckiebots), collision against live
-// NPC footprints and the optional objects of a domain-randomized env, and
-// the auto-reset with NPC re-placement and the DR redraw. The plain version
+// NPC footprints and the optional objects of a domain-randomized env, the
+// auto-reset with NPC re-placement and the DR redraw, stacked multimaps
+// (every lookup offset by the env's map index) and the Nav task (goal
+// check, optional distance shaping, goal redraw at reset). The plain version
 // is dtown_torch/ops/state_kernel.py::state_step_reference; this file keeps
 // its float32 operation order step for step.
 //
@@ -29,6 +31,14 @@
 //    descriptors come from a float table [8, n_npc] and each object column
 //    carries its NPC index and optional-object bit (colmap), so one binary
 //    serves every map. The agent and the duckiebots share one lane_query.
+//  * A stack of maps arrives as its members' tables concatenated: the
+//    word index gains mi * npw, the curve column mi * t_pad, the spawn pick
+//    mi * BANK_K and the goal pick mi * goal_k, where mi is the env's map
+//    row; each object column carries its member map (colmap row 2) and
+//    another map's column is skipped. Envs of one warp sit on different
+//    maps (round-robin assignment), so that skip diverges; it is exact.
+//  * Nav and multimap are template parameters (four kernels): the single
+//    map static path compiles without their registers, as before.
 //  * The DR redraw's multiply-adds are fmaf: the reference, as XLA builds
 //    it, contracts them (the plain version emulates the FMA in float64).
 //  * The integer hash computes +, << and ^ in uint32_t (defined
@@ -77,11 +87,12 @@ constexpr int BK_LDOT = 5, BK_LDEG = 6, BK_INLANE = 7, BANK_K = 512;
 // scalar parameters (state_kernel.py _PARAM_NAMES)
 constexpr int P_DT = 0, P_INV_DT = 1, P_KR = 2, P_KL = 3, P_RADIUS = 4;
 constexpr int P_LIMIT = 5, P_MAX_STEPS = 6, P_CAM_BACK = 7, P_HW = 8;
-constexpr int P_HL = 9, P_TS_INV = 10, P_AGENT_RAD = 11;
+constexpr int P_HL = 9, P_TS_INV = 10, P_AGENT_RAD = 11, P_NAV_COEF = 12;
 
 constexpr int BEZIER_ITERS = 8;
 constexpr int THREADS = 128;
-constexpr int SALT_SPAWN = 0x20000000;
+constexpr int SALT_SPAWN = 0x20000000, SALT_GOAL = 0x40000000;
+constexpr float NAV_GOAL_REWARD = 500.0f;
 constexpr int SALT_U01 = 0x10000000, TAG_STEP = 0x3779B9;
 constexpr int SALT_DUCKIE = 0x30000000, NPC_STEP = 0x611C9;
 
@@ -91,9 +102,13 @@ struct Tables {
   const float* ot;
   const float* bank;
   const float* npc;    // [8, n_npc]
-  const int* colmap;   // [2, M]: NPC index, optional bit (-1: none)
+  const int* colmap;   // [3, M]: NPC index, optional bit (-1: none), map
   const float* drp;    // DR (lo, span) pairs
-  int n_tiles, Hg, Wg, M, n_npc, dr, n_opt;
+  const int* n_ok_v;   // [n_maps] accepted-bank count of each member
+  const int* n_driv;   // [n_maps] drivable-tile count of each member (Nav)
+  const float* goal;   // [8, n_maps * goal_k] drivable tiles (Nav)
+  int n_tiles;         // the curve table's width (n_maps * t_pad)
+  int Hg, Wg, M, n_npc, dr, n_opt, n_maps, t_pad, npw, goal_k;
   float ts_inv;
 };
 
@@ -150,8 +165,10 @@ __device__ __forceinline__ void drive(float* x, float* z, float* a,
 }
 
 // Drivability of the tile under (px, pz); also returns the clipped tile id.
+// woff is the env's word segment (mi * npw on a stack, else 0).
 __device__ __forceinline__ bool drivable_at(const Tables& t, float px,
-                                            float pz, int* tid_out) {
+                                            float pz, int woff,
+                                            int* tid_out) {
   const float fi = floorf(px * t.ts_inv);
   const float fj = floorf(pz * t.ts_inv);
   const bool ing = (fi >= 0.0f) & (fi < static_cast<float>(t.Wg))
@@ -159,7 +176,7 @@ __device__ __forceinline__ bool drivable_at(const Tables& t, float px,
   const int ii = min(max(static_cast<int>(fi), 0), t.Wg - 1);
   const int jj = min(max(static_cast<int>(fj), 0), t.Hg - 1);
   const int tid = jj * t.Wg + ii;
-  const int word = __ldg(t.words + (tid >> 2));
+  const int word = __ldg(t.words + woff + (tid >> 2));
   const int kind = (word >> ((tid & 3) * 8)) & 0xF;
   *tid_out = tid;
   return ing & (kind >= 1) & (kind <= 6);  // TILE_STRAIGHT..TILE_4WAY
@@ -228,11 +245,12 @@ __device__ void lane_query(const Tables& t, int tid, float qx, float qz,
   *best_o = best_dot;
 }
 
+template <bool NAV, bool MULTI>
 __global__ void __launch_bounds__(THREADS)
 state_step_kernel(const float* __restrict__ blob,
                   const float* __restrict__ act, float* __restrict__ out,
                   Tables t, const float* __restrict__ prm, int B, int nf,
-                  int n_ok, int frame_skip, int use_wm, int auto_reset) {
+                  int frame_skip, int use_wm, int auto_reset) {
   const int e = blockIdx.x * THREADS + threadIdx.x;
   if (e >= B) return;
   t.ts_inv = __ldg(prm + P_TS_INV);
@@ -255,6 +273,17 @@ state_step_kernel(const float* __restrict__ blob,
   const int32_t rng_i = static_cast<int32_t>(rng_ctr);
   const int32_t env_i = static_cast<int32_t>(env_id);
   const int objvis = t.dr ? static_cast<int>(row(drb + DR_OBJVIS)) : 0;
+  // the env's member of a stack and its table segments
+  const int mi = MULTI ? static_cast<int>(map_row) : 0;
+  const int woff = MULTI ? mi * t.npw : 0;
+  const int toff = MULTI ? mi * t.t_pad : 0;
+  const int navb = drb + (t.dr ? DR_ROWS : 0);
+  float goal_i = 0.0f, goal_j = 0.0f;
+  if (NAV) {
+    goal_i = row(navb);
+    goal_j = row(navb + 1);
+  }
+  const float pos_x_pre = pos_x, pos_z_pre = pos_z;
 
   // ---- wheel model ----------------------------------------------------
   float u_l, u_r;
@@ -300,13 +329,13 @@ state_step_kernel(const float* __restrict__ blob,
   const float acx = pos_x + cam_back * dir_x;
   const float acz = pos_z + cam_back * dir_z;
   int tid_pos, tid_tmp;
-  const bool d_c = drivable_at(t, pos_x, pos_z, &tid_pos);
-  const bool d_c2 = drivable_at(t, acx, acz, &tid_tmp);
+  const bool d_c = drivable_at(t, pos_x, pos_z, woff, &tid_pos);
+  const bool d_c2 = drivable_at(t, acx, acz, woff, &tid_tmp);
   const bool d_l = drivable_at(t, acx - hw * right_x, acz - hw * right_z,
-                               &tid_tmp);
+                               woff, &tid_tmp);
   const bool d_r = drivable_at(t, acx + hw * right_x, acz + hw * right_z,
-                               &tid_tmp);
-  const bool d_f = drivable_at(t, acx + hl * dir_x, acz + hl * dir_z,
+                               woff, &tid_tmp);
+  const bool d_f = drivable_at(t, acx + hl * dir_x, acz + hl * dir_z, woff,
                                &tid_tmp);
   const bool all_driv = d_c2 & d_l & d_r & d_f;
 
@@ -341,14 +370,16 @@ state_step_kernel(const float* __restrict__ blob,
         // scripted duckiebot: pure pursuit on two chained lane queries
         const float bdx = c_n, bdz = -s_n;
         int tq;
-        const bool drv1 = drivable_at(t, nx, nz, &tq);
+        const bool drv1 = drivable_at(t, nx, nz, woff, &tq);
         float cpx, cpz, ctx, ctz, bd1;
-        lane_query(t, tq, nx, nz, bdx, bdz, &cpx, &cpz, &ctx, &ctz, &bd1);
+        lane_query(t, toff + tq, nx, nz, bdx, bdz, &cpx, &cpz, &ctx, &ctz,
+                   &bd1);
         const float fpx = cpx + DT_F(0.30) * ctx;
         const float fpz = cpz + DT_F(0.30) * ctz;
-        const bool drv2 = drivable_at(t, fpx, fpz, &tq);
+        const bool drv2 = drivable_at(t, fpx, fpz, woff, &tq);
         float gpx, gpz, gtx, gtz, bd2;
-        lane_query(t, tq, fpx, fpz, bdx, bdz, &gpx, &gpz, &gtx, &gtz, &bd2);
+        lane_query(t, toff + tq, fpx, fpz, bdx, bdz, &gpx, &gpz, &gtx, &gtz,
+                   &bd2);
         const float pvx = gpx - nx;
         const float pvz = gpz - nz;
         const float pinv = 1.0f / sqrtf(fmaxf(pvx * pvx + pvz * pvz, 1e-18f));
@@ -380,6 +411,8 @@ state_step_kernel(const float* __restrict__ blob,
     }
     const float agent_rad = __ldg(prm + P_AGENT_RAD);
     for (int m = 0; m < t.M; ++m) {
+      // a stack's object exists on its own member map only
+      if (MULTI && __ldg(t.colmap + 2 * t.M + m) != mi) continue;
       auto O = [&](int r) { return __ldg(t.ot + r * t.M + m); };
       const int ni = __ldg(t.colmap + m);
       const int kbit = __ldg(t.colmap + t.M + m);
@@ -458,8 +491,8 @@ state_step_kernel(const float* __restrict__ blob,
 
   // ---- lane position ------------------------------------------------------
   float px_c, pz_c, tanx, tanz, best_dot;
-  lane_query(t, tid_pos, pos_x, pos_z, dir_x, dir_z, &px_c, &pz_c, &tanx,
-             &tanz, &best_dot);
+  lane_query(t, toff + tid_pos, pos_x, pos_z, dir_x, dir_z, &px_c, &pz_c,
+             &tanx, &tanz, &best_dot);
   const float dot_dir = clampf(dir_x * tanx + dir_z * tanz, -1.0f, 1.0f);
   const float rox = -tanz;
   const float roz = tanx;
@@ -475,8 +508,28 @@ state_step_kernel(const float* __restrict__ blob,
   const float reward_alive = in_lane ? reward_full : 40.0f * col_penalty;
   const bool crashed = !valid;
   const bool truncated = step_cnt >= __ldg(prm + P_MAX_STEPS);
-  const bool done = crashed | truncated;
-  const float reward = crashed ? -1000.0f : reward_alive;
+  bool done = crashed | truncated;
+  float reward = crashed ? -1000.0f : reward_alive;
+  if (NAV) {
+    // goal check on the post-step tile of a live episode
+    const bool reached = (floorf(pos_x * t.ts_inv) == goal_i)
+                         & (floorf(pos_z * t.ts_inv) == goal_j) & !done;
+    if (reached) reward = reward + NAV_GOAL_REWARD;
+    const float coef = __ldg(prm + P_NAV_COEF);
+    if (coef != 0.0f) {
+      // potential-based goal-distance shaping
+      const float ts_k = 1.0f / t.ts_inv;
+      const float gx = (goal_i + 0.5f) * ts_k;
+      const float gz = (goal_j + 0.5f) * ts_k;
+      float ex = gx - pos_x_pre, ez = gz - pos_z_pre;
+      const float d_prev = sqrtf(ex * ex + ez * ez);
+      ex = gx - pos_x;
+      ez = gz - pos_z;
+      const float d_next = sqrtf(ex * ex + ez * ez);
+      reward = reward + coef * (d_prev - d_next);
+    }
+    done = done | reached;
+  }
 
   // ---- auto-reset from the spawn bank --------------------------------------
   const float lane_deg = ang_rad * DT_F(180.0 / 3.14159265358979323846);
@@ -488,8 +541,10 @@ state_step_kernel(const float* __restrict__ blob,
     for (int k = 0; k < DR_ROWS; ++k) drr[k] = row(drb + k);
   if (auto_reset && done) {
     const int32_t h = hash_u32(rng_i, env_i, SALT_SPAWN);
-    const int sidx = h % max(n_ok, 1);
-    auto S = [&](int r) { return __ldg(t.bank + r * BANK_K + sidx); };
+    // within the env's member segment of the bank (mi = 0 on one map)
+    const int sidx = mi * BANK_K + h % max(__ldg(t.n_ok_v + mi), 1);
+    const int bank_w = t.n_maps * BANK_K;
+    auto S = [&](int r) { return __ldg(t.bank + r * bank_w + sidx); };
     pos_x = S(BK_X);
     pos_y = S(BK_Y);
     pos_z = S(BK_Z);
@@ -502,6 +557,13 @@ state_step_kernel(const float* __restrict__ blob,
     o_ldot = S(BK_LDOT);
     o_ldeg = S(BK_LDEG);
     o_inlane = S(BK_INLANE);
+    if (NAV) {
+      // a fresh goal: a uniform drivable tile of the env's map
+      const int32_t hg = hash_u32(rng_i, env_i, SALT_GOAL);
+      const int gidx = mi * t.goal_k + hg % max(__ldg(t.n_driv + mi), 1);
+      goal_i = __ldg(t.goal + gidx);
+      goal_j = __ldg(t.goal + t.n_maps * t.goal_k + gidx);
+    }
     // NPCs re-place at their initial poses; a duckie's walk speed is
     // redrawn ~N(0.02, 0.005) (Irwin-Hall sum of 4 hashed uniforms)
     for (int i = 0; i < n_npc; ++i) {
@@ -579,6 +641,11 @@ state_step_kernel(const float* __restrict__ blob,
     for (int k = 0; k < DR_ROWS; ++k) out[(drb + k) * B + e] = drr[k];
     f_end = drb + DR_ROWS;
   }
+  if (NAV) {
+    out[navb * B + e] = goal_i;
+    out[(navb + 1) * B + e] = goal_j;
+    f_end = navb + 2;
+  }
   for (int f = f_end; f < nf; ++f) out[f * B + e] = 0.0f;
 }
 
@@ -589,11 +656,15 @@ extern "C" int dtown_state_step(const float* blob, const float* act,
                                 const float* ct, const float* ot,
                                 const float* bank, const float* prm,
                                 const float* npc, const int* colmap,
-                                const float* drp, int B, int nf,
-                                int n_tiles, int Hg, int Wg, int M, int n_ok,
-                                int frame_skip, int use_wm, int auto_reset,
-                                int n_npc, int dr, int n_opt, void* stream) {
-  if (n_npc > MAX_NPC) return static_cast<int>(cudaErrorInvalidValue);
+                                const float* drp, const int* n_ok_v,
+                                const int* n_driv, const float* goal, int B,
+                                int nf, int n_tiles, int Hg, int Wg, int M,
+                                int frame_skip, int use_wm,
+                                int auto_reset, int n_npc, int dr, int n_opt,
+                                int n_maps, int t_pad, int npw,
+                                int nav, int goal_k, void* stream) {
+  if (n_npc > MAX_NPC || n_maps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Tables t;
   t.words = words;
   t.ct = ct;
@@ -609,10 +680,28 @@ extern "C" int dtown_state_step(const float* blob, const float* act,
   t.n_npc = n_npc;
   t.dr = dr;
   t.n_opt = n_opt;
+  t.n_ok_v = n_ok_v;
+  t.n_driv = n_driv;
+  t.goal = goal;
+  t.n_maps = n_maps;
+  t.t_pad = t_pad;
+  t.npw = npw;
+  t.goal_k = goal_k;
   t.ts_inv = 0.0f;  // read from prm inside the kernel
   const int blocks = (B + THREADS - 1) / THREADS;
-  state_step_kernel<<<blocks, THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      blob, act, out, t, prm, B, nf, n_ok, frame_skip, use_wm, auto_reset);
+  auto st = static_cast<cudaStream_t>(stream);
+  // nav and a stack of more than one map pick the specialisation
+  switch ((nav ? 2 : 0) | (n_maps > 1 ? 1 : 0)) {
+#define DT_LAUNCH(k, N, M_)                                              \
+  case k:                                                                \
+    state_step_kernel<N, M_><<<blocks, THREADS, 0, st>>>(                \
+        blob, act, out, t, prm, B, nf, frame_skip, use_wm, auto_reset);  \
+    break;
+    DT_LAUNCH(0, false, false)
+    DT_LAUNCH(1, false, true)
+    DT_LAUNCH(2, true, false)
+    DT_LAUNCH(3, true, true)
+#undef DT_LAUNCH
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,14 @@ Static branches (objects present, NPCs present) and the spawn bank's
 accepted prefix are decided once on the host from the numpy map
 (``host_facts``), never from device tensors: a step makes no host sync.
 
-Scope: single maps, bank spawns, with or without domain randomization;
-RGB observations through the row-fed render kernels
-(render/row_raster.py, ``renderer="pallas"``) or the 11-column state
-vector. The options not ported yet raise NotImplementedError from
-``check_scope`` (shared with the fused rollout) and, for RGB
-observations, ``check_row_render_scope``; ``make_vec_env`` runs both
+Scope: bank spawns, with or without domain randomization; RGB
+observations through the row-fed render kernels (render/row_raster.py,
+``renderer="pallas"``) or the 11-column state vector. ``reset`` also
+takes a stack of maps (each env on its own member, assigned round-robin),
+which the fused rollout uses; the step path runs single maps only. The
+options not ported yet raise NotImplementedError from ``check_scope``
+(shared with the fused rollout), ``check_single_map`` and, for RGB
+observations, ``check_row_render_scope``; ``make_vec_env`` runs all three
 once.
 """
 from __future__ import annotations
@@ -45,11 +47,11 @@ NTRY = 8  # bank candidates per spawn
 def check_scope(cfg: EnvConfig, maps: MapArrays):
     """Raise NotImplementedError for the options neither the step path nor
     the fused rollout has yet, naming the missing piece, and ValueError for
-    an unknown obs_type. ``maps`` is one map; a list of maps or a stacked
-    map is a multimap."""
-    if isinstance(maps, (list, tuple)) or np.asarray(
-            maps.numpy().tile_kind).ndim == 3:
-        raise NotImplementedError("stacked multimaps are not ported yet")
+    an unknown obs_type. ``maps`` is one map or a stack of maps
+    (map_loader.stack_maps); a list of maps is refused."""
+    if isinstance(maps, (list, tuple)):
+        raise TypeError("pass one map or a stack of maps "
+                        "(dtown_torch.stack_maps(names)), not a list")
     if cfg.spawn_mode != "bank":
         raise NotImplementedError(
             f"spawn_mode={cfg.spawn_mode!r} (rejection sampling, "
@@ -59,6 +61,17 @@ def check_scope(cfg: EnvConfig, maps: MapArrays):
             "start_pose / user_tile_start overrides are not ported yet")
     if cfg.obs_type not in ("rgb", "state"):
         raise ValueError(f"unknown obs_type {cfg.obs_type}")
+
+
+def check_single_map(maps):
+    """Raise NotImplementedError for a multimap on the step path: the
+    reference renders stacks there with its XLA ray-caster
+    (render/raster.py), which is not ported yet."""
+    if isinstance(maps, (list, tuple)) or maps.is_stack:
+        raise NotImplementedError(
+            "stacked multimaps on the step path (make_vec) need the XLA "
+            "ray-caster render/raster.py, which is not ported yet; the "
+            "fused rollout (make_fused_rollout) takes stacks")
 
 
 def check_row_render_scope(cfg: EnvConfig):
@@ -159,11 +172,23 @@ def reset(cfg, maps, generator: torch.Generator, num_envs: int,
           n_ok: int | None = None) -> EnvState:
     """Fresh episode states of ``num_envs`` envs, drawn from ``generator``
     (a torch.Generator on the map's device) on that device. ``n_ok`` is
-    bank_accept_count(cfg, maps), counted here when None."""
+    bank_accept_count(cfg, maps), counted here when None.
+
+    On a stack of maps env b lives on member b % n_maps
+    (initial_map_indices): it spawns from that member's bank with its own
+    accepted prefix, carries its NPCs and takes its randomization draw on
+    the stack's padded grid (dtown.env.reset with select_map)."""
     dev = maps.obj_pos.device
     if generator.device.type != dev.type:
         raise ValueError(f"the generator is on {generator.device}, the map "
                          f"on {dev}: draws stay on the state's device")
+    if maps.is_stack:
+        idx = initial_map_indices(maps, num_envs, dev)
+        out = None
+        for m in range(maps.n_maps):
+            st = reset(cfg, maps.map_at(m), generator, num_envs)
+            out = st if out is None else tree_where(idx == m, st, out)
+        return out.replace(map_idx=idx)
     if n_ok is None:
         n_ok = bank_accept_count(cfg, maps)
     idxs = torch.randint(0, n_ok, (num_envs, NTRY),
@@ -306,8 +331,10 @@ def step_batch(cfg, maps, states, actions, generator=None, pack=None,
 # ---------------------------------------------------------------------------
 
 def initial_map_indices(maps, num_envs: int, device=None):
-    """Per-env map index: all zeros on a single map."""
-    return torch.zeros((num_envs,), dtype=torch.int32, device=device)
+    """Per-env map index: env b on member b % n_maps of a stack (a sticky
+    round-robin curriculum), all zeros on a single map."""
+    return torch.arange(num_envs, dtype=torch.int32,
+                        device=device) % maps.n_maps
 
 
 def make_vec_env(cfg: EnvConfig, maps: MapArrays, num_envs: int,
@@ -326,6 +353,7 @@ def make_vec_env(cfg: EnvConfig, maps: MapArrays, num_envs: int,
     ported yet raise here, and the map's static branches are decided here,
     once."""
     dev = resolve_device(device)
+    check_single_map(maps)
     check_scope(cfg, maps)
     maps_d = maps.to(dev)
     facts = host_facts(cfg, maps_d)

@@ -3,7 +3,8 @@
 Counterpart of dtown/map_loader.py. The map YAMLs are data shared with
 the JAX package and are read by path from ``dtown/maps/``; nothing of that
 package is imported. The compiled arrays stay numpy; ``MapArrays.to``
-moves them to a device.
+moves them to a device. ``stack_maps`` stacks several compiled maps into
+one multimap for the fused rollout's curriculum.
 """
 from __future__ import annotations
 
@@ -195,3 +196,44 @@ def compile_map(data: dict, max_objects: Optional[int] = None) -> MapArrays:
         spawn_lane_deg=f32(sp_deg),
         spawn_mask=sp_mask,
     )
+
+
+def stack_maps(map_names) -> MapArrays:
+    """Stack several compiled maps along a leading map axis (a multimap).
+
+    Every map is padded with zeros to the largest member's grid and object
+    budget; the tile size becomes one per map and the spawn banks stack as
+    they are. Envs pick their member by a per-env map
+    index (the blob's F_MAPID row)."""
+    compiled = [load_map(n) for n in map_names]
+    H = max(m.tile_kind.shape[0] for m in compiled)
+    W = max(m.tile_kind.shape[1] for m in compiled)
+    M = max(m.obj_pos.shape[0] for m in compiled)
+    grid = ("tile_kind", "tile_angle", "drivable", "tile_tex", "curves",
+            "curve_mask")
+    objects = ("obj_pos", "obj_y_rot", "obj_scale", "obj_kind",
+               "obj_corners", "obj_norms", "obj_safety_rad", "obj_height",
+               "obj_halfdims", "obj_mask", "obj_optional", "obj_is_dynamic",
+               "obj_walk_dist")
+
+    def pad(a, first, last):
+        pads = [(0, 0)] * a.ndim
+        pads[0] = first
+        if last is not None:
+            pads[1] = last
+        return np.pad(a, pads)
+
+    def pad_map(m):
+        h, w = m.tile_kind.shape
+        out = {f: getattr(m, f) for f in T.MAP_FIELDS}
+        for f in grid:
+            out[f] = pad(out[f], (0, H - h), (0, W - w))
+        for f in objects:
+            out[f] = pad(out[f], (0, M - m.obj_pos.shape[0]), None)
+        out["drivable_frac"] = pad(m.drivable_frac.reshape(h, w),
+                                   (0, H - h), (0, W - w)).reshape(-1)
+        return out
+
+    padded = [pad_map(m) for m in compiled]
+    return MapArrays(**{f: np.stack([p[f] for p in padded])
+                        for f in T.MAP_FIELDS})

@@ -14,8 +14,11 @@ once at the rollout's boundary.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where the plain torch versions run instead of the kernels.
-Scope: single maps, with moving NPCs, domain randomization, RGB or
-grayscale frames, or state vectors.
+Scope: single maps and stacks of maps (map_loader.stack_maps; env b on
+member b % n_maps, kept across resets), with moving NPCs, domain
+randomization, RGB or grayscale frames, or state vectors; and the Nav task
+(``make_fused_nav_rollout``: goal tiles in the blob, checked and redrawn
+inside the state kernel). A scene past the blob render's budget raises.
 """
 from __future__ import annotations
 
@@ -27,37 +30,50 @@ import torch
 from dtown_torch import constants as C
 from dtown_torch import env
 from dtown_torch import randomization
+from dtown_torch import tasks
 from dtown_torch.device import resolve_device
 from dtown_torch.geometry import get_lane_pos2
 from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import blob_raster as br
-from dtown_torch.types import EnvConfig
+from dtown_torch.types import EnvConfig, tree_where
 
 _DEG2RAD = float(np.float32(np.pi / 180.0))
 
 
 def _opt_bits(maps):
-    """Slots of the map's optional objects in mask-column order: bit k of
-    the DR_OBJVIS row is the visibility of slot _opt_bits(maps)[k] (the
+    """The optional objects in bit order: bit k of the DR_OBJVIS row is the
+    visibility of _opt_bits(maps)[k] = (member map or None, slot), the
+    optional slots of each member in mask-column order, map-major (the
     state kernel's opt_cols and the render plan's opt_bit)."""
     host = maps.numpy()
-    optional = np.asarray(host.obj_optional)
-    return [int(s) for s in np.nonzero(np.asarray(host.obj_mask))[0]
-            if bool(optional[int(s)])]
+
+    def slots(h):
+        optional = np.asarray(h.obj_optional)
+        return [int(s) for s in np.nonzero(np.asarray(h.obj_mask))[0]
+                if bool(optional[int(s)])]
+
+    if host.is_stack:
+        return [(m, s) for m in range(host.n_maps)
+                for s in slots(host.map_at(m))]
+    return [(None, s) for s in slots(host)]
 
 
-def pack_blob(states, maps, domain_rand, rng):
+def pack_blob(states, maps, domain_rand, rng, nav_goal=None):
     """Batched EnvState -> blob f32 [nf, B] on the states' device.
 
     rng: int tensor [B], the per-env counter of the kernel's hash draws
     (stored mod 65536). The moving NPCs' rows come from states.dyn and,
     with domain_rand, the randomization rows from the states' draws,
-    optional-object visibility packed as the DR_OBJVIS bitmask."""
+    optional-object visibility packed as the DR_OBJVIS bitmask; nav_goal
+    (int [B, 2] goal tiles) adds the Nav rows. On a stack an NPC's rows of
+    an env on another member hold the NPC's initial pose (slot s of that
+    env is another object): junk by design, gated in the kernels."""
     B = states.pos.shape[0]
     dev = states.pos.device
     f32 = torch.float32
     npcs = sk.moving_npcs(maps.numpy())
-    rows = torch.zeros((sk.nf_for(len(npcs), domain_rand), B), dtype=f32,
+    rows = torch.zeros((sk.nf_for(len(npcs), domain_rand,
+                                  nav_goal is not None), B), dtype=f32,
                        device=dev)
     rows[sk.F_POS_X] = states.pos[:, 0]
     rows[sk.F_POS_Y] = states.pos[:, 1]
@@ -75,14 +91,26 @@ def pack_blob(states, maps, domain_rand, rng):
     for i, npc in enumerate(npcs):
         base = sk.F_NPC_BASE + sk.NPC_ROWS * i
         s = npc["slot"]
-        rows[base:base + sk.NPC_ROWS] = torch.stack([
-            states.dyn.pos[:, s, 0], states.dyn.pos[:, s, 2],
-            states.dyn.angle[:, s], states.dyn.walk_dist[:, s],
-            states.dyn.vel[:, s]])
+        vals = (states.dyn.pos[:, s, 0], states.dyn.pos[:, s, 2],
+                states.dyn.angle[:, s], states.dyn.walk_dist[:, s],
+                states.dyn.vel[:, s])
+        if npc["map"] is not None:
+            on = states.map_idx == npc["map"]
+            v0 = (C.DUCKIE_WALK_SPEED if npc["kind"] == "duckie"
+                  else C.DUCKIEBOT_VEL)
+            park = (npc["x0"], npc["z0"], npc["a0"], 0.0, float(v0))
+            vals = [torch.where(on, v, d) for v, d in zip(vals, park)]
+        rows[base:base + sk.NPC_ROWS] = torch.stack(list(vals))
+    if nav_goal is not None:
+        nvb = sk.nav_base(len(npcs), domain_rand)
+        rows[nvb + sk.NAV_GI] = nav_goal[:, 0].to(f32)
+        rows[nvb + sk.NAV_GJ] = nav_goal[:, 1].to(f32)
     if domain_rand:
         drb = sk.dr_base(len(npcs))
         vis = torch.zeros((B,), dtype=f32, device=dev)
-        for k, s in enumerate(_opt_bits(maps)):
+        # a bit of another member reads the env's same slot: junk by
+        # design, gated by the kernels' map tests
+        for k, (_, s) in enumerate(_opt_bits(maps)):
             vis = vis + torch.where(states.obj_visible[:, s],
                                     float(1 << k), 0.0)
         rows[drb:drb + sk.DR_ROWS] = torch.stack([
@@ -126,16 +154,21 @@ def update_states_from_blob(states, blob, maps, domain_rand):
     """Write the blob's rows back into a batched EnvState: the pose rows,
     the moving NPCs' rows into states.dyn (time and traffic-light phase
     rebuilt from the env's step time) and, with domain_rand, the
-    randomization rows (texture variants re-hashed from the seed)."""
+    randomization rows (texture variants re-hashed from the seed). On a
+    stack an NPC's rows and an optional bit are written back only into the
+    envs on its member map (two members can share a slot index)."""
     npcs = sk.moving_npcs(maps.numpy())
+    mi = states.map_idx
     if domain_rand:
         drb = sk.dr_base(len(npcs))
         r = lambda k: blob[drb + k]
         seed = r(sk.DR_TEXSEED).to(torch.int32)
         vis = states.obj_visible.clone()
-        for k, s in enumerate(_opt_bits(maps)):
-            vis[:, s] = (torch.floor(r(sk.DR_OBJVIS) / float(1 << k))
-                         .to(torch.int32) & 1) > 0
+        for k, (m, s) in enumerate(_opt_bits(maps)):
+            bit = (torch.floor(r(sk.DR_OBJVIS) / float(1 << k))
+                   .to(torch.int32) & 1) > 0
+            vis[:, s] = bit if m is None else torch.where(mi == m, bit,
+                                                          vis[:, s])
         states = states.replace(
             cam_fov_y=r(sk.DR_FOV), cam_height=r(sk.DR_CAMH),
             cam_angle=r(sk.DR_CAMA), cam_fwd_dist=r(sk.DR_CAMF),
@@ -159,11 +192,16 @@ def update_states_from_blob(states, blob, maps, domain_rand):
         for i, npc in enumerate(npcs):
             base = sk.F_NPC_BASE + sk.NPC_ROWS * i
             s = npc["slot"]
-            pos[:, s, 0] = blob[base + 0]
-            pos[:, s, 2] = blob[base + 1]
-            ang[:, s] = blob[base + 2]
-            walk[:, s] = blob[base + 3]
-            vel[:, s] = blob[base + 4]
+            if npc["map"] is None:
+                put = lambda cur, v: v
+            else:
+                on = mi == npc["map"]
+                put = lambda cur, v: torch.where(on, v, cur)
+            pos[:, s, 0] = put(pos[:, s, 0], blob[base + 0])
+            pos[:, s, 2] = put(pos[:, s, 2], blob[base + 1])
+            ang[:, s] = put(ang[:, s], blob[base + 2])
+            walk[:, s] = put(walk[:, s], blob[base + 3])
+            vel[:, s] = put(vel[:, s], blob[base + 4])
         t_env = blob[sk.F_TIME][:, None]
         period = torch.full((), C.TRAFFICLIGHT_PERIOD, device=blob.device)
         dyn = dyn.replace(
@@ -202,26 +240,83 @@ def state_obs_from_blob(blob):
 def obs_from_blob(cfg, maps, blob, pk=None):
     """Observation of the blob's current state without stepping (the
     first observation of a rollout): frames through the blob render with
-    the packed plan ``pk``, or state vectors whose lane features come from
-    geometry.get_lane_pos2 on the blob's pose. ``maps`` is the map on the
-    blob's device."""
+    the packed plan ``pk`` (on a stack too), or state vectors whose lane
+    features come from geometry.get_lane_pos2 on the blob's pose, each env
+    on its own member of a stack. ``maps`` is the map on the blob's
+    device."""
     if cfg.obs_type == "rgb":
         return br.render_frames_from_blob(blob, pk)
     pos = torch.stack([blob[sk.F_POS_X], blob[sk.F_POS_Y],
                        blob[sk.F_POS_Z]], -1)
-    lp = get_lane_pos2(maps, pos, blob[sk.F_ANGLE])
+    if maps.is_stack:
+        mi = blob[sk.F_MAPID].to(torch.int32)
+        lp = None
+        for m in range(maps.n_maps):
+            lp_m = get_lane_pos2(maps.map_at(m), pos, blob[sk.F_ANGLE])
+            lp = lp_m if lp is None else tree_where(mi == m, lp_m, lp)
+    else:
+        lp = get_lane_pos2(maps, pos, blob[sk.F_ANGLE])
     inlane = lp.in_lane.to(torch.float32)
     return _state_obs(blob, lp.dist, lp.dot_dir, lp.angle_rad, inlane)
 
 
+def nav_goal_features_from_blob(cfg, maps, blob):
+    """The Nav goal in the agent's frame from the blob's goal and pose rows
+    (tasks.goal_features without a lane query): the goal tile centre's
+    offset (forward, right) and its distance, three f32 [B] columns."""
+    navb = sk.nav_base(len(sk.moving_npcs(maps.numpy())), cfg.domain_rand)
+    ts = torch.as_tensor(np.asarray(maps.numpy().tile_size, np.float32),
+                         device=blob.device)
+    return _goal_features(blob, navb, ts)
+
+
+def _goal_features(blob, navb, ts):
+    """nav_goal_features_from_blob with the Nav rows' base and the tile
+    size (a 0-d tensor, or one per member of a stack) given."""
+    if ts.dim() == 1:   # a stack: the env's member's tile size
+        ts = ts[blob[sk.F_MAPID].long()]
+    dx = (blob[navb + sk.NAV_GI] + 0.5) * ts - blob[sk.F_POS_X]
+    dz = (blob[navb + sk.NAV_GJ] + 0.5) * ts - blob[sk.F_POS_Z]
+    c = torch.cos(blob[sk.F_ANGLE])
+    s = torch.sin(blob[sk.F_ANGLE])
+    return dx * c - dz * s, dx * s + dz * c, torch.sqrt(dx * dx + dz * dz)
+
+
+def _setup(cfg, maps, num_envs, device, nav):
+    """What both fused rollouts build once: the device, the state kernel's
+    tables (with the goal table under Nav), the packed render plan (None
+    for state observations) and the map on the device."""
+    dev = resolve_device(device)
+    if num_envs % 8 != 0:
+        raise ValueError(f"num_envs must be divisible by 8; got {num_envs}")
+    # the render options are the blob render's to refuse (pack_plan)
+    env.check_scope(cfg, maps)
+    tables = sk.build_tables(cfg, maps)
+    st = sk.device_tables(cfg, tables, dev,
+                          sk.build_goal_table(maps) if nav else None)
+    pk = None
+    if cfg.obs_type == "rgb":
+        plan = br.build_render_plan(cfg, maps)
+        if plan is None:
+            raise NotImplementedError(
+                "the scene is past the blob render's budget (48 objects, 8 "
+                "moving NPCs; a stack: 8 maps of one tile size): the "
+                "reference renders it with the row-fed kernels (one map) "
+                "or its XLA ray-caster (a stack), which the fused path "
+                "does not take yet")
+        pk = br.pack_plan(cfg, plan, dev)
+    return dev, st, pk, maps.to(dev)
+
+
 def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
                        device="cuda"):
-    """(init_blob, fused_step, rollout) of the fused rollout.
+    """(init_blob, fused_step, rollout) of the fused rollout on one map or
+    a stack of maps (map_loader.stack_maps).
 
     init_blob(generator) -> blob f32 [nf, B]: fresh states from env.reset
-    (bank spawns, NPC speeds, randomization draws) and the hash counters,
-    all drawn from ``generator``, a torch.Generator on the rollout's
-    device.
+    (bank spawns, NPC speeds, randomization draws; on a stack env b on
+    member b % n_maps) and the hash counters, all drawn from
+    ``generator``, a torch.Generator on the rollout's device.
     fused_step(blob, actions[B, 2]) -> (blob, StepOutput, obs): obs is u8
     [B, C, S, 128] frames (C = 1 under grayscale) or f32 [B, 11] state
     vectors. fused_step.tables and fused_step.pack are the kernels' device
@@ -232,36 +327,58 @@ def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
     first plane row (int64), or of the last state vectors (int32), as in
     the reference.
     """
-    dev = resolve_device(device)
-    if num_envs % 8 != 0:
-        raise ValueError(f"num_envs must be divisible by 8; got {num_envs}")
-    # the render options are the blob render's to refuse (pack_plan)
-    env.check_scope(cfg, maps)
-    tables = sk.build_tables(cfg, maps)
-    st = sk.device_tables(cfg, tables, dev)
-    pk = None
-    if cfg.obs_type == "rgb":
-        plan = br.build_render_plan(cfg, maps)
-        if plan is None:
-            raise NotImplementedError(
-                "maps with more than 48 objects need the row-fed render "
-                "kernels, which the fused path does not take yet")
-        pk = br.pack_plan(cfg, plan, dev)
-    maps_d = maps.to(dev)
-    n_ok = env.bank_accept_count(cfg, maps_d)
+    return _make_rollout(cfg, maps, num_envs, device, nav=False,
+                         goal_in_obs=False)
+
+
+def make_fused_nav_rollout(cfg: EnvConfig, maps, num_envs: int,
+                           goal_in_obs: bool = False, device="cuda"):
+    """(init_blob, fused_step, rollout) of the Nav task on the fused
+    rollout (dtown's DuckietownNav / tasks.nav_step): each env carries a
+    goal tile in its blob rows; entering it scores +NAV_GOAL_REWARD (plus
+    the optional distance shaping, cfg.nav_shaping_coef) and ends the
+    episode, and the reset draws a fresh goal on the env's map, all inside
+    the state kernel. ``maps`` is one map or a stack.
+
+    init_blob(generator) -> blob: fresh states and first goals
+    (tasks.draw_goal), drawn from ``generator``. fused_step(blob, actions)
+    -> (blob, StepOutput, obs) with make_fused_rollout's observations; with
+    goal_in_obs the goal in the agent's frame (forward, right, distance)
+    joins them: state vectors grow to f32 [B, 14], and frames become the
+    tuple (planes, goal f32 [B, 3]). fused_step.tables, fused_step.pack and
+    rollout as in make_fused_rollout (the checksum reads the planes)."""
+    return _make_rollout(cfg, maps, num_envs, device, nav=True,
+                         goal_in_obs=goal_in_obs)
+
+
+def _make_rollout(cfg, maps, num_envs, device, nav, goal_in_obs):
+    """Both fused rollouts: the Nav task (``nav``) adds the goal draw at
+    init and, with ``goal_in_obs``, the goal features to the observation."""
+    dev, st, pk, maps_d = _setup(cfg, maps, num_envs, device, nav)
+    # the goal features' constants, once: no host work per step
+    navb = sk.nav_base(st["n_npc"], cfg.domain_rand)
+    ts = maps_d.tile_size.to(torch.float32)
 
     def init_blob(generator: torch.Generator):
-        states = env.reset(cfg, maps_d, generator, num_envs, n_ok)
+        states = env.reset(cfg, maps_d, generator, num_envs)
         rng = torch.randint(0, 65536, (num_envs,), generator=generator,
                             device=dev)
-        return pack_blob(states, maps_d, cfg.domain_rand, rng)
+        goal = (tasks.draw_goal(maps_d, states.map_idx, generator) if nav
+                else None)
+        return pack_blob(states, maps_d, cfg.domain_rand, rng,
+                         nav_goal=goal)
 
     def fused_step(blob, actions):
         blob = sk.state_step(blob, actions, st)
         if pk is not None:
             obs = br.render_frames_from_blob(blob, pk)
+            if goal_in_obs:
+                obs = (obs, torch.stack(_goal_features(blob, navb, ts), -1))
         else:
             obs = state_obs_from_blob(blob)
+            if goal_in_obs:
+                obs = torch.cat([obs, torch.stack(
+                    _goal_features(blob, navb, ts), -1)], -1)
         return blob, unpack_outputs(blob), obs
 
     def rollout(blob, actions, n_iters: int):
@@ -270,7 +387,8 @@ def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
             blob, out, obs = fused_step(blob, actions)
             rsum = out.reward.sum()
             if pk is not None:
-                osum = obs[:, 0, 0, :].sum(dtype=torch.int64)
+                planes = obs[0] if goal_in_obs else obs
+                osum = planes[:, 0, 0, :].sum(dtype=torch.int64)
             else:
                 osum = obs.sum().to(torch.int32)
         return blob, rsum, osum

@@ -16,7 +16,12 @@ Moving NPCs (walking duckies, pure-pursuit duckiebots) step inside the
 kernel from their blob rows, and collide with their live footprints;
 under domain randomization the optional objects follow the env's
 visibility bits and every randomization row is redrawn at auto-reset.
-Scope: single maps; the Nav task and map stacks raise.
+On a stack of maps (map_loader.stack_maps) the tables are the members'
+tables concatenated and every lookup is offset by the env's map index
+(the F_MAPID row): tile words, curve table, spawn bank, and a map gate on
+each object column. With the Nav task (``build_goal_table``) the blob
+carries a goal tile per env: entering it scores +NAV_GOAL_REWARD and ends
+the episode, and the reset draws a fresh goal on the env's own map.
 """
 from __future__ import annotations
 
@@ -66,10 +71,13 @@ def nf_for(n_npc: int, domain_rand: bool = False, nav: bool = False) -> int:
 
 
 def moving_npcs(maps):
-    """Static descriptors of a single map's moving NPCs (walking duckies
-    and scripted duckiebots; traffic lights stay static), in slot order."""
-    if np.asarray(maps.tile_kind).ndim == 3:
-        raise NotImplementedError("stacked multimaps are not ported yet")
+    """Static descriptors of a map's moving NPCs (walking duckies and
+    scripted duckiebots; traffic lights stay static), in slot order. On a
+    stack of maps: every member's NPCs, map-major, each descriptor with
+    its member index ``map`` (None on a single map)."""
+    if maps.is_stack:
+        return [dict(npc, map=m) for m in range(maps.n_maps)
+                for npc in moving_npcs(maps.map_at(m))]
     mask = (
         np.asarray(maps.obj_mask)
         & np.asarray(maps.obj_is_dynamic)
@@ -115,8 +123,8 @@ BK_X, BK_Y, BK_Z, BK_ANG = 0, 1, 2, 3
 BK_LDIST, BK_LDOT, BK_LDEG, BK_INLANE = 4, 5, 6, 7
 BANK_K = 512
 
-# hash-stream salt of the auto-reset spawn pick
-SALT_SPAWN = 0x20000000
+# hash-stream salts of the auto-reset spawn pick and the Nav goal redraw
+SALT_SPAWN, SALT_GOAL = 0x20000000, 0x40000000
 
 
 def _acos(x):
@@ -144,14 +152,83 @@ def _hash_u32(a, b, salt=0):
 
 
 def build_tables(cfg, maps):
-    """Static numpy kernel tables of one compiled map (dict)."""
-    if np.asarray(maps.tile_kind).ndim == 3:
+    """Static numpy kernel tables of a compiled map or a stack of maps
+    (dict). A stack's tables carry a ``multi`` descriptor as well."""
+    if maps.is_stack:
         return _build_tables_multi(cfg, maps)
     return _build_tables_single(cfg, maps)
 
 
 def _build_tables_multi(cfg, maps):
-    raise NotImplementedError("stacked multimaps are not ported yet")
+    """The members' tables concatenated: curve tables, exact ``npw``-word
+    segments of tile words, object columns (each recording its member in
+    ``col_maps``; NPC and optional-bit indices made global, map-major) and
+    spawn banks, with each member's accepted-bank count."""
+    n_maps = maps.n_maps
+    tabs = [_build_tables_single(cfg, maps.map_at(m)) for m in range(n_maps)]
+    if len({t["ts_inv"].item() for t in tabs}) != 1:
+        raise ValueError("stacked maps must share tile_size")
+    t0 = tabs[0]
+    Hg, Wg = t0["Hg"], t0["Wg"]
+    t_pad = Hg * Wg
+    npw = -(-t_pad // 4)
+
+    ct = np.concatenate([t["ct"] for t in tabs], axis=1)
+    words = np.concatenate([t["words"][0, :npw] for t in tabs])
+    wtot = len(words)
+    words_padded = np.zeros((1, max(-(-wtot // 128) * 128, 128)), np.int32)
+    words_padded[0, :wtot] = words
+
+    ots, col_maps, opt_cols, npcs_all, moving_cols = [], [], [], [], []
+    col0 = 0
+    for m, t in enumerate(tabs):
+        npc_off = len(npcs_all)
+        npcs_all.extend(dict(npc, map=m) for npc in t["npcs"])
+        if t["M"]:
+            ots.append(t["ot"][:, :t["M"]])
+            col_maps.extend([m] * t["M"])
+            opt_cols.extend(c + col0 for c in t["opt_cols"])
+            moving_cols.extend((c + col0, i + npc_off)
+                               for c, i in t["moving_cols"])
+            col0 += t["M"]
+    M = col0
+    if len(opt_cols) > 23:
+        # the visibility bitfield is one f32 blob row, exact to 2^24
+        raise NotImplementedError(
+            f"stack has {len(opt_cols)} optional objects; the fused "
+            "domain-rand visibility bitfield supports at most 23")
+    ot = (np.concatenate(ots, axis=1) if M
+          else np.zeros((OT_F, 1), dtype=np.float32))
+    bank = np.concatenate([t["bank"] for t in tabs], axis=1)
+    n_ok_list = tuple(t["n_ok"] for t in tabs)
+    return dict(
+        ct=ct, words=words_padded, ot=ot, bank=bank,
+        n_ok=max(n_ok_list), n_words=wtot, M=M, Hg=Hg, Wg=Wg,
+        ts_inv=t0["ts_inv"], npcs=tuple(npcs_all),
+        moving_cols=tuple(moving_cols), opt_cols=tuple(opt_cols),
+        multi=dict(n_maps=n_maps, t_pad=t_pad, npw=npw,
+                   n_ok_list=n_ok_list, col_maps=tuple(col_maps)),
+    )
+
+
+def build_goal_table(maps):
+    """Drivable-tile table of the Nav task: dict(goal=f32 [8, n_maps *
+    goal_k] whose rows 0 and 1 are the (i, j) of each member's drivable
+    tiles in row-major order (the rest zero), goal_k (the segment width, a
+    multiple of 128), n_driv_list (each member's drivable-tile count)).
+    The reset draws a uniform index into the env's member segment."""
+    grids = ([np.asarray(maps.drivable[m]) for m in range(maps.n_maps)]
+             if maps.is_stack else [np.asarray(maps.drivable)])
+    coords = []
+    for g in grids:
+        j, i = np.nonzero(g)
+        coords.append(np.stack([i, j], axis=0).astype(np.float32))
+    n_driv_list = tuple(int(c.shape[1]) for c in coords)
+    goal_k = max(-(-max(n_driv_list) // 128) * 128, 128)
+    table = np.zeros((8, len(coords) * goal_k), dtype=np.float32)
+    for m, c in enumerate(coords):
+        table[:2, m * goal_k:m * goal_k + c.shape[1]] = c
+    return dict(goal=table, goal_k=goal_k, n_driv_list=n_driv_list)
 
 
 def _build_tables_single(cfg, maps):
@@ -276,7 +353,7 @@ def _check_scope(cfg, tables):
 # kernel reads them in this order (csrc/state_kernel.cu, P_* indices).
 _PARAM_NAMES = (
     "dt", "inv_dt", "k_r_inv", "k_l_inv", "radius", "limit", "max_steps",
-    "cam_back", "hw", "hl", "ts_inv", "agent_rad",
+    "cam_back", "hw", "hl", "ts_inv", "agent_rad", "nav_coef",
 )
 
 # NPC table rows ([NPC_F, n_npc], float32): the static descriptor of each
@@ -332,36 +409,48 @@ def kernel_params(cfg, tables):
         hl=0.5 * C.ROBOT_LENGTH,
         ts_inv=float(tables["ts_inv"]),
         agent_rad=C.AGENT_SAFETY_RAD,
+        nav_coef=float(cfg.nav_shaping_coef),
     )
     return np.array([vals[k] for k in _PARAM_NAMES], dtype=np.float32)
 
 
-def device_tables(cfg, tables, device):
+def device_tables(cfg, tables, device, nav=None):
     """The kernel's inputs that do not change per step, on ``device``.
 
     Besides the reference's tables: ``npc`` [NPC_F, n_npc] (the moving
-    NPCs' descriptors), ``colmap`` int32 [2, M] (per object column its NPC
-    index and, under domain randomization, its optional-object bit; -1
-    for none) and ``drp`` float32 [2 * 13] (the DR redraw's lo and span
-    per _u01 tag, Python-double folds rounded once)."""
+    NPCs' descriptors), ``colmap`` int32 [3, M] (per object column its NPC
+    index and, under domain randomization, its optional-object bit, -1 for
+    none, and its member map, 0 on a single map), ``drp`` float32 [2 * 13]
+    (the DR redraw's lo and span per _u01 tag, Python-double folds rounded
+    once), ``n_ok_v`` and ``n_driv`` int32 [n_maps] (each member's
+    accepted-bank and drivable-tile counts) and, with the Nav task (``nav``
+    = build_goal_table(maps)), ``goal`` [8, n_maps * goal_k]."""
     _check_scope(cfg, tables)
     dev = torch.device(device)
     npcs = tuple(tables["npcs"])
     dr = bool(cfg.domain_rand)
     M = int(tables["M"])
+    multi = tables.get("multi")
+    n_maps = multi["n_maps"] if multi else 1
     npc = np.zeros((NPC_F, max(len(npcs), 1)), np.float32)
     for i, d in enumerate(npcs):
         npc[:, i] = (NPC_DUCKIE if d["kind"] == "duckie" else NPC_BOT,
                      d["x0"], d["z0"], d["a0"], d["hw"], d["hl"], d["rad"],
                      d["walk_dist"])
-    colmap = np.full((2, max(M, 1)), -1, np.int32)
+    colmap = np.full((3, max(M, 1)), -1, np.int32)
     for c, i in tables["moving_cols"]:
         colmap[0, c] = i
     if dr:
         for k, c in enumerate(tables["opt_cols"]):
             colmap[1, c] = k
+    colmap[2] = 0
+    if multi:
+        colmap[2, :M] = multi["col_maps"]
     drp = np.array([v for lo, hi in _dr_ranges(cfg) for v in (lo, hi - lo)],
                    np.float32)
+    n_ok_v = multi["n_ok_list"] if multi else (tables["n_ok"],)
+    n_driv = nav["n_driv_list"] if nav else (0,) * n_maps
+    i32 = lambda v: torch.as_tensor(np.asarray(v, np.int32), device=dev)
     return dict(
         words=torch.as_tensor(tables["words"][0], device=dev),
         ct=torch.as_tensor(tables["ct"], device=dev),
@@ -371,15 +460,22 @@ def device_tables(cfg, tables, device):
         npc=torch.as_tensor(npc, device=dev),
         colmap=torch.as_tensor(colmap, device=dev),
         drp=torch.as_tensor(drp, device=dev),
-        n_tiles=int(tables["Hg"] * tables["Wg"]),
+        n_tiles=int(tables["ct"].shape[1]),   # the curve table's width
         Hg=int(tables["Hg"]), Wg=int(tables["Wg"]), M=M,
-        n_ok=int(tables["n_ok"]),
         frame_skip=int(cfg.frame_skip),
         use_wm=bool(cfg.use_wheel_model),
         auto_reset=bool(cfg.auto_reset),
         npcs=npcs, n_npc=len(npcs), domain_rand=dr,
         n_opt=len(tables["opt_cols"]) if dr else 0,
-        nf=nf_for(len(npcs), dr),
+        n_maps=n_maps,
+        t_pad=int(multi["t_pad"] if multi else tables["Hg"] * tables["Wg"]),
+        npw=int(multi["npw"] if multi else 0),
+        n_ok_v=i32(n_ok_v), n_driv=i32(n_driv),
+        nav=nav is not None,
+        goal=(torch.as_tensor(nav["goal"], device=dev) if nav
+              else torch.zeros((8, 1), device=dev)),
+        goal_k=int(nav["goal_k"]) if nav else 0,
+        nf=nf_for(len(npcs), dr, nav is not None),
     )
 
 
@@ -422,7 +518,7 @@ def state_step_reference(blob, act0, act1, dev):
     f32 [B]; dev = device_tables(...). Returns the new blob."""
     prm = [float(v) for v in dev["prm"].cpu()]
     (dt, inv_dt, k_r_inv, k_l_inv, radius, limit, max_steps, cam_back,
-     hw, hl, ts_inv, agent_rad) = prm
+     hw, hl, ts_inv, agent_rad, nav_coef) = prm
     Hg, Wg = dev["Hg"], dev["Wg"]
     words = dev["words"]
     ct = dev["ct"]
@@ -431,6 +527,8 @@ def state_step_reference(blob, act0, act1, dev):
     npcs = dev["npcs"]
     dr = dev["domain_rand"]
     drb = dr_base(len(npcs))
+    multi, nav = dev["n_maps"] > 1, dev["nav"]
+    navb = nav_base(len(npcs), dr)
     i32 = torch.int32
     where = torch.where
 
@@ -443,6 +541,10 @@ def state_step_reference(blob, act0, act1, dev):
     env_id = blob[F_ENVID]
     map_row = blob[F_MAPID]
     rng_i, env_i = rng_ctr.to(i32), env_id.to(i32)
+    mi = map_row.to(i32)
+    if nav:
+        goal_i, goal_j = blob[navb + NAV_GI], blob[navb + NAV_GJ]
+        pos_x_pre, pos_z_pre = pos_x, pos_z
     if dr:
         dr_rows = [blob[drb + k] for k in range(DR_ROWS)]
         objvis = dr_rows[DR_OBJVIS].to(i32)
@@ -491,7 +593,8 @@ def state_step_reference(blob, act0, act1, dev):
         ii = torch.clamp(fi.to(i32), 0, Wg - 1)
         jj = torch.clamp(fj.to(i32), 0, Hg - 1)
         tid = jj * Wg + ii
-        word = words[(tid >> 2).long()]
+        # the env's word segment of a stack (mi = 0 on one map)
+        word = words[(mi * dev["npw"] + (tid >> 2)).long()]
         kind = (word >> ((tid & 3) * 8)) & 0xF
         driv = (kind >= T.TILE_STRAIGHT) & (kind <= T.TILE_4WAY)
         return ing & driv, tid
@@ -506,7 +609,7 @@ def state_step_reference(blob, act0, act1, dev):
     # ---- lane query (the agent's lane position and the duckiebots') --
     def lane_query(qx, qz, qdx, qdz):
         q_driv, tid_q = drivable_at(qx, qz)
-        pkg = ct[:, tid_q.long()]                     # [CT_F, B]
+        pkg = ct[:, (mi * dev["t_pad"] + tid_q).long()]    # [CT_F, B]
         best_dot = torch.full_like(qx, -1e30)
         cps = [torch.zeros_like(qx) for _ in range(8)]
         for c in range(N_CURVES):
@@ -605,6 +708,9 @@ def state_step_reference(blob, act0, act1, dev):
         colmap = dev["colmap"].cpu().numpy()
         for m in range(M):
             i, kbit = int(colmap[0, m]), int(colmap[1, m])
+            # a stack's object exists on its own member map only; the
+            # NPC rows of an env on another map are junk by design
+            on_map = (mi == int(colmap[2, m])) if multi else True
             if i >= 0:
                 # live NPC footprint (objects.py::dynamic_corners)
                 npc = npcs[i]
@@ -622,7 +728,7 @@ def state_step_reference(blob, act0, act1, dev):
                        nz - hl_n * fz_n + hw_n * rz_n]
                 obj_axes = [(rx_n, rz_n), (fx_n, fz_n)]
                 o_px, o_pz, o_rad = nx, nz, npc["rad"]
-                o_act, o_dyn = True, True
+                o_act, o_dyn = on_map, True
             else:
                 # 0-d float32 tensors: table values enter the math unrounded
                 ocx = [ot[OT_CX[2 * k], m] for k in range(4)]
@@ -632,9 +738,12 @@ def state_step_reference(blob, act0, act1, dev):
                 o_px, o_pz, o_rad = ot[OT_PX, m], ot[OT_PZ, m], \
                     ot[OT_RAD, m]
                 o_act, o_dyn = bool(flags[0, m]), bool(flags[1, m])
-                if kbit >= 0 and o_act:
+                if o_act:
+                    o_act = on_map
+                if kbit >= 0 and o_act is not False:
                     # optional-object visibility bit of this env
-                    o_act = ((objvis >> kbit) & 1) > 0
+                    bit = ((objvis >> kbit) & 1) > 0
+                    o_act = bit if o_act is True else o_act & bit
             separated = torch.zeros_like(all_driv)
             for ax, az in [(dir_x, dir_z), (right_x, right_z)] + obj_axes:
                 amin = amax = None
@@ -695,6 +804,25 @@ def state_step_reference(blob, act0, act1, dev):
     done = crashed | truncated
     reward = where(crashed, C.REWARD_INVALID_POSE, reward_alive)
 
+    if nav:
+        # goal check on the post-step tile of a live episode
+        # (tasks.nav_step); floor(pos / ts) and the goal rows are small
+        # exact integers
+        reached = ((torch.floor(pos_x * ts_inv) == goal_i)
+                   & (torch.floor(pos_z * ts_inv) == goal_j) & ~done)
+        reward = where(reached, reward + C.NAV_GOAL_REWARD, reward)
+        if nav_coef:
+            # potential-based goal-distance shaping
+            ts_k = div(torch.ones_like(pos_x), ts_inv)
+            gx = (goal_i + 0.5) * ts_k
+            gz = (goal_j + 0.5) * ts_k
+            ex, ez = gx - pos_x_pre, gz - pos_z_pre
+            d_prev = torch.sqrt(ex * ex + ez * ez)
+            ex, ez = gx - pos_x, gz - pos_z
+            d_next = torch.sqrt(ex * ex + ez * ez)
+            reward = reward + nav_coef * (d_prev - d_next)
+        done = done | reached
+
     # ---- auto-reset from the spawn bank -------------------------------
     lane_deg = ang_rad * (180.0 / np.pi)
     in_lane_f = in_lane.to(torch.float32)
@@ -702,7 +830,9 @@ def state_step_reference(blob, act0, act1, dev):
         in_lane_f
     if dev["auto_reset"]:
         h = _hash_u32(rng_i, env_i, salt=SALT_SPAWN)
-        sp = bank[:, (h % max(dev["n_ok"], 1)).long()]   # [8, B]
+        # within the env's member segment of the bank (mi = 0 on one map)
+        n_ok_e = torch.clamp(dev["n_ok_v"][mi.long()], min=1)
+        sp = bank[:, (mi * BANK_K + h % n_ok_e).long()]  # [8, B]
         pos_x = where(done, sp[BK_X], pos_x)
         pos_y = where(done, sp[BK_Y], pos_y)
         pos_z = where(done, sp[BK_Z], pos_z)
@@ -715,6 +845,14 @@ def state_step_reference(blob, act0, act1, dev):
         o_ldot = where(done, sp[BK_LDOT], o_ldot)
         o_ldeg = where(done, sp[BK_LDEG], o_ldeg)
         o_inlane = where(done, sp[BK_INLANE], o_inlane)
+        if nav:
+            # a fresh goal: a uniform drivable tile of the env's map
+            hg = _hash_u32(rng_i, env_i, salt=SALT_GOAL)
+            n_d = torch.clamp(dev["n_driv"][mi.long()], min=1)
+            gidx = mi * dev["goal_k"] + hg % n_d
+            gp = dev["goal"][:, gidx.long()]
+            goal_i = where(done, gp[0], goal_i)
+            goal_j = where(done, gp[1], goal_j)
         # NPCs re-place at their initial poses; a duckie's walk speed is
         # redrawn ~N(0.02, 0.005) (Irwin-Hall sum of 4 hashed uniforms)
         for i, npc in enumerate(npcs):
@@ -785,6 +923,8 @@ def state_step_reference(blob, act0, act1, dev):
         rows += [npc_x[i], npc_z[i], npc_a[i], npc_w[i], npc_v[i]]
     if dr:
         rows += dr_rows
+    if nav:
+        rows += [goal_i, goal_j]
     out = torch.zeros_like(blob)
     out[:len(rows)] = torch.stack(rows)
     return out
@@ -796,8 +936,8 @@ def _lib():
     lib = _build.load("state_kernel")
     fn = lib.dtown_state_step
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11
-                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 14
+                       + [ctypes.c_int] * 17 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -833,10 +973,14 @@ def state_step(blob, actions, dev):
              dev["ot"].data_ptr(), dev["bank"].data_ptr(),
              dev["prm"].data_ptr(), dev["npc"].data_ptr(),
              dev["colmap"].data_ptr(), dev["drp"].data_ptr(),
+             dev["n_ok_v"].data_ptr(), dev["n_driv"].data_ptr(),
+             dev["goal"].data_ptr(),
              B, nf, dev["n_tiles"], dev["Hg"], dev["Wg"],
-             dev["M"], dev["n_ok"], dev["frame_skip"],
+             dev["M"], dev["frame_skip"],
              int(dev["use_wm"]), int(dev["auto_reset"]), dev["n_npc"],
-             int(dev["domain_rand"]), dev["n_opt"], stream)
+             int(dev["domain_rand"]), dev["n_opt"], dev["n_maps"],
+             dev["t_pad"], dev["npw"], int(dev["nav"]), dev["goal_k"],
+             stream)
     if err != 0:
         raise RuntimeError(f"state_step kernel launch failed: CUDA error "
                            f"{err}")

@@ -18,7 +18,11 @@ kernel, so one compiled kernel serves every scene. On a CUDA blob
 runs ``render_frames_reference``, the plain torch version with the same
 float32 operation order.
 
-Scope: single maps; map stacks, fisheye and triangle-mesh objects raise
+A stack of maps (map_loader.stack_maps) renders through one merged plan:
+each env reads its map row (F_MAPID) once, offsets its tile-word index
+into its member's segment and skips the objects of other members.
+
+Scope: single maps and stacks; fisheye and triangle-mesh objects raise
 NotImplementedError.
 
 Differences from the TPU kernel, none beyond rounding: the static RGB
@@ -72,11 +76,12 @@ def pack_tile_words(kind, ang):
 
 
 def build_render_plan(cfg, maps):
-    """Bake the scene plan of one map (dict), or None when the scene has
-    more than 48 objects or more than 8 moving NPCs (the reference's
-    planless fallback)."""
-    if np.asarray(maps.tile_kind).ndim == 3:
-        raise NotImplementedError("stacked multimaps are not ported yet")
+    """Bake the scene plan of one map or a stack of maps (dict), or None
+    when the scene is past the budget (the reference's planless fallback):
+    more than 48 real objects or 8 moving NPCs, or a stack of more than 8
+    maps or of maps that differ in tile size."""
+    if maps.is_stack:
+        return _stack_plan(cfg, maps)
     if cfg.mesh_fidelity == "triangles":
         raise NotImplementedError("triangle-mesh objects are not ported yet")
     obj_mask = np.asarray(maps.obj_mask)
@@ -183,6 +188,51 @@ def build_render_plan(cfg, maps):
         objs=objs,
         cluster=2 if clustered else 0,
     )
+
+
+def _stack_plan(cfg, maps):
+    """The members' plans merged: objects concatenated map-major, each with
+    its ``map``, NPC indices and optional bits made global; the tile words
+    concatenated in ``npw``-word segments (``multi``); the cluster size
+    the reference's kernel predicates the stack's object pass with."""
+    n_maps = maps.n_maps
+    if n_maps > 8:
+        return None
+    per = [build_render_plan(cfg, maps.map_at(m)) for m in range(n_maps)]
+    if any(p is None for p in per):
+        return None
+    if any(p["ts_inv"] != per[0]["ts_inv"] for p in per):
+        return None
+    if sum(p["n_npc"] for p in per) > 8:
+        return None
+    npw = -(-(per[0]["Hg"] * per[0]["Wg"]) // 4)
+    words, objs = [], []
+    present = frozenset()
+    npc_off = opt_off = 0
+    for m, p in enumerate(per):
+        words.extend(p["words"])
+        present = present | p["present"]
+        for ob in p["objs"]:
+            ob = dict(ob, map=m)
+            if ob["npc_idx"] is not None:
+                ob["npc_idx"] += npc_off
+            if ob.get("opt_bit") is not None:
+                ob["opt_bit"] += opt_off
+            objs.append(ob)
+        npc_off += p["n_npc"]
+        opt_off += p["n_opt"]
+    if sum(p["n_real"] for p in per) > 48:
+        return None
+    plan = dict(per[0])   # n_opt stays the first member's, as in dtown
+    plan.update(
+        words=words, n_words=n_maps * npw, present=present, objs=objs,
+        n_npc=npc_off, n_real=sum(p["n_real"] for p in per),
+        multi=dict(n_maps=n_maps, npw=npw),
+        cluster=(min(p["cluster"] for p in per if p["cluster"])
+                 if any(p["cluster"] for p in per)
+                 else max(1, max(len(p["objs"]) for p in per))),
+    )
+    return plan
 
 
 def _lod_band(cd, cull_d):
@@ -314,8 +364,8 @@ _SCENE_NAMES = (
 OBJ_F = 12
 (O_X, O_Y, O_Z, O_SR, O_CR, O_INVS, O_SC, O_LMX, O_LMY, O_LMZ,
  O_CULL2, O_RV) = range(12)
-OBJ_I = 7
-OI_P0, OI_NP, OI_BOX, OI_NPC, OI_OPT, OI_WIG, OI_PRED = range(7)
+OBJ_I = 8
+OI_P0, OI_NP, OI_BOX, OI_NPC, OI_OPT, OI_WIG, OI_PRED, OI_MAP = range(8)
 # per-prim floats (P_*) and ints (PI_*)
 PRIM_F = 13
 (P_CX, P_CY, P_CZ, P_P0, P_P1, P_P2, P_CD2, P_CWX, P_CWY, P_CWZ, P_RW2,
@@ -430,6 +480,7 @@ def pack_plan(cfg, plan, device):
                          else -1)
         oi[i, OI_WIG] = int(ob["wiggle"])
         oi[i, OI_PRED] = int(i in view_r)
+        oi[i, OI_MAP] = -1 if ob["map"] is None else ob["map"]
         for pr in ob["prims"]:
             cx, cy, cz = pr["center"]
             p0, p1, p2 = pr["param"]
@@ -462,6 +513,7 @@ def pack_plan(cfg, plan, device):
     rays = _static_ray_planes(H, W, plan, grayscale=gray)
     rays = rays.reshape(rays.shape[0], -1)
     words = np.asarray(plan["words"], np.int32)
+    multi = plan["multi"]
     return dict(
         H=H, W=W, C=1 if gray else 3, gray=gray, dr=dr, n_npc=n_npc,
         drb=sk.dr_base(n_npc), nf=sk.nf_for(n_npc, dr),
@@ -475,6 +527,8 @@ def pack_plan(cfg, plan, device):
         n_objs=len(objs), Hg=plan["Hg"], Wg=plan["Wg"],
         aa=aa, any_x=any(k in present for k in INTERSECTION_KINDS),
         no_clamp=no_clamp,
+        n_maps=multi["n_maps"] if multi else 1,
+        npw=multi["npw"] if multi else 0,
     )
 
 
@@ -588,7 +642,12 @@ def render_frames_reference(blob, pk):
     in_grid = ((ti >= 0) & (ti < pk["Wg"]) & (tj >= 0) & (tj < pk["Hg"])
                & gmask)
     tid = tj.to(i32) * pk["Wg"] + ti.to(i32)
-    word = _select_word(pk["words"], tid >> 2)
+    widx = tid >> 2
+    if pk["n_maps"] > 1:
+        # the env's member segment of the stacked tile words
+        mid = col(sk.F_MAPID).to(i32)
+        widx = mid * pk["npw"] + widx
+    word = _select_word(pk["words"], widx)
     byte = (word >> ((tid & 3) << 3)) & 0xFF
     kind = byte & 0xF
     angle_idx = (byte >> 4) & 0x3
@@ -639,7 +698,7 @@ def render_frames_reference(blob, pk):
         pf, pi = pk["pf"].cpu(), pk["pi"].cpu().tolist()
         for o in range(pk["n_objs"]):
             ov = of[o].to(dev)                       # 0-d f32 scalars
-            p0_, n_p, has_box, npc, opt, wig, pred = oi[o]
+            p0_, n_p, has_box, npc, opt, wig, pred, omap = oi[o]
             if npc >= 0:
                 # moving NPC: pose from the blob's NPC rows
                 nbase = sk.F_NPC_BASE + sk.NPC_ROWS * npc
@@ -662,11 +721,14 @@ def render_frames_reference(blob, pk):
             dxo = ox - eye0
             dzo = oz - eye2
             dist2 = dxo * dxo + dzo * dzo            # [B, 1]
-            # gates beyond the distance: the optional-object bit, the
-            # NPC's view half-plane
+            # gates beyond the distance: the stack member, the
+            # optional-object bit, the NPC's view half-plane
             obj_on = None
+            if omap >= 0 and pk["n_maps"] > 1:
+                obj_on = mid == omap
             if opt >= 0:
-                obj_on = ((visbits >> opt) & 1) > 0
+                bit = ((visbits >> opt) & 1) > 0
+                obj_on = bit if obj_on is None else obj_on & bit
             if pred:
                 hp = dxo * c_a - dzo * s_a > -ov[O_RV]
                 obj_on = hp if obj_on is None else obj_on & hp
@@ -775,7 +837,7 @@ def _lib():
     lib = _build.load("blob_render")
     fn = lib.dtown_blob_render
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 18
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -814,7 +876,8 @@ def render_frames_from_blob(blob, pk):
              B, H, W, pk["words"].shape[0], pk["Hg"], pk["Wg"],
              pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
              int(pk["no_clamp"]), LAMP_GREEN, LAMP_RED, int(pk["dr"]),
-             int(pk["gray"]), int(pk["n_npc"] > 0), pk["drb"], stream)
+             int(pk["gray"]), int(pk["n_npc"] > 0), pk["drb"],
+             pk["n_maps"], pk["npw"], stream)
     if err != 0:
         raise RuntimeError(f"blob render kernel launch failed: CUDA error "
                            f"{err}")

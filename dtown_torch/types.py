@@ -131,9 +131,11 @@ MAP_FIELDS = (
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class MapArrays:
-    """Compiled static map data of ONE map (numpy arrays, or tensors after
+    """Compiled static map data (numpy arrays, or tensors after
     ``.to(device)``). Shapes and dtypes as in dtown.types.MapArrays:
-    int32 tile grids [H, W], bool masks, float32 everything else."""
+    int32 tile grids [H, W], bool masks, float32 everything else. A stack
+    of maps (map_loader.stack_maps) carries a leading map axis on every
+    field; ``map_at(m)`` is its member m."""
 
     tile_kind: np.ndarray       # int32 [H, W]
     tile_angle: np.ndarray      # int32 [H, W], 0..3
@@ -167,6 +169,23 @@ class MapArrays:
     def numpy(self) -> "MapArrays":
         """The numpy (host) copy of this map."""
         return self if self.host is None else self.host
+
+    @property
+    def is_stack(self) -> bool:
+        return self.tile_kind.ndim == 3
+
+    @property
+    def n_maps(self) -> int:
+        return int(self.tile_kind.shape[0]) if self.is_stack else 1
+
+    def map_at(self, m: int) -> "MapArrays":
+        """Member m of a stack: one map on the stack's padded grid and
+        object budget (dtown.env.select_map with a constant index)."""
+        if not self.is_stack:
+            raise ValueError("map_at takes a stack of maps")
+        host = None if self.host is None else self.host.map_at(m)
+        return MapArrays(host=host, **{f: getattr(self, f)[m]
+                                       for f in MAP_FIELDS})
 
     @property
     def grid_shape(self):

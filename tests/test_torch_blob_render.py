@@ -2,7 +2,6 @@
 package: its Pallas blob render kernel in interpret mode, its XLA
 ray-caster, and the XLA golden images. The CUDA kernel is held against the
 same plain version on the card by chip_smoke.py."""
-import dataclasses
 import os
 
 import numpy as np
@@ -20,7 +19,7 @@ from dtown.render import blob_raster as jbr
 from dtown.render import pallas_raster as jpr
 from dtown.render import shading as jshading
 
-from dtown_torch import EnvConfig, load_map
+from dtown_torch import EnvConfig, load_map, stack_maps
 from dtown_torch.convert import blob_from_numpy
 from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import blob_raster as br
@@ -158,16 +157,18 @@ def test_tile_shading_helpers_match_reference():
 
 
 def test_render_scope_raises():
-    """What the blob render does not take yet: triangle meshes and stacked
-    multimaps (plan), fisheye (packing). Moving NPCs, domain
-    randomization and grayscale pack."""
+    """What the blob render does not take yet: triangle meshes (plan, on a
+    stack too), fisheye (packing). Moving NPCs, domain randomization,
+    grayscale and stacks of maps pack."""
     maps = load_map("loop_obstacles")
     with pytest.raises(NotImplementedError, match="triangle"):
         br.build_render_plan(EnvConfig(mesh_fidelity="triangles"), maps)
-    stacked = dataclasses.replace(
-        maps, tile_kind=np.stack([maps.tile_kind, maps.tile_kind]))
-    with pytest.raises(NotImplementedError, match="multimaps"):
-        br.build_render_plan(EnvConfig(), stacked)
+    stacked = stack_maps(["loop_obstacles", "small_loop"])
+    with pytest.raises(NotImplementedError, match="triangle"):
+        br.build_render_plan(EnvConfig(mesh_fidelity="triangles"), stacked)
+    pk = br.pack_plan(EnvConfig(), br.build_render_plan(EnvConfig(),
+                                                        stacked), "cpu")
+    assert pk["n_maps"] == 2 and pk["npw"] == 7
     plan = br.build_render_plan(EnvConfig(), maps)
     with pytest.raises(NotImplementedError, match="fisheye"):
         br.pack_plan(EnvConfig(distortion=True), plan, "cpu")

@@ -2,7 +2,6 @@
 package's Pallas state kernel in interpret mode, on the same blob and
 actions, through auto-resets. The CUDA kernel is held against the same
 plain version on the card by chip_smoke.py."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -17,7 +16,7 @@ from dtown import types as jtypes
 from dtown.ops import state_kernel as jsk
 from dtown.ops.fused_env import make_fused_rollout as j_make_fused_rollout
 
-from dtown_torch import EnvConfig, load_map
+from dtown_torch import EnvConfig, load_map, stack_maps
 from dtown_torch.convert import blob_from_numpy
 from dtown_torch.geometry import sincos
 from dtown_torch.ops import state_kernel as sk
@@ -112,13 +111,16 @@ def test_state_step_rejects_bad_inputs():
 
 
 def test_state_step_scope_raises():
-    """What the state step does not take yet: stacked multimaps and the
-    start-pose overrides. Moving NPCs and domain randomization build."""
+    """What the state step does not take yet: the start-pose overrides (on
+    a stack too). Moving NPCs, domain randomization and stacks of maps
+    build."""
     maps = load_map("small_loop")
-    stacked = dataclasses.replace(
-        maps, tile_kind=np.stack([maps.tile_kind, maps.tile_kind]))
-    with pytest.raises(NotImplementedError, match="multimaps"):
-        sk.build_tables(EnvConfig(), stacked)
+    stacked = stack_maps(["small_loop", "4way"])
+    with pytest.raises(NotImplementedError, match="start-pose"):
+        sk.build_tables(EnvConfig(start_pose=(1.0, 1.0, 0.0)), stacked)
+    dev = sk.device_tables(EnvConfig(), sk.build_tables(EnvConfig(),
+                                                        stacked), "cpu")
+    assert dev["n_maps"] == 2 and dev["t_pad"] == 25
     for cfg in (EnvConfig(start_pose=(1.0, 1.0, 0.0)),
                 EnvConfig(user_tile_start=(1, 1))):
         with pytest.raises(NotImplementedError, match="start-pose"):

@@ -2,15 +2,17 @@
 """Smoke run of dtown_torch on one NVIDIA card: builds the CUDA kernels,
 holds each against its plain torch version, drives the fused rollout
 (the default bench configuration, then moving NPCs, domain randomization,
-grayscale and state observations, then stacks of maps and the Nav task)
+grayscale and state observations, then stacks of maps and the Nav task,
+then fisheye, the reference's native 640x480 and triangle-mesh objects)
 and the vectorized step API (make_vec) on a static-scene map, a row-fed
-map and a domain-randomized map, and prints what it measured.
+map and a domain-randomized map, then both with fisheye, runs the
+float32/bfloat16 throughput probe, and prints what it measured.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi);
-  2. build the three kernel sources from dtown_torch/csrc (one nvcc each,
+  2. build the four kernel sources from dtown_torch/csrc (one nvcc each,
      in parallel), printing registers and spill of every specialisation;
   3. the fused RGB rollout on loop_obstacles, 64 envs 32x32, 5 steps, on
      the card vs on the CPU from the same blob;
@@ -29,7 +31,15 @@ Phases (any failure exits non-zero and prints no result):
      NPCs of both kinds, optional objects); nav_stack, the Nav task
      (make_fused_nav_rollout, goal_in_obs, no shaping as train_ppo.py
      defaults; its check runs goal-distance shaping 2.0) on stack3's
-     maps. Each first
+     maps; fisheye (scripts/bench_all.sh --distortion: loop_obstacles
+     64x64, the fisheye ray planes); fisheye_dr (tests/test_fused_matrix.py
+     distortion_dr: small_loop with domain randomization and fisheye, the
+     NDC table path); native_res (bench_all.sh --width 640 --height 480
+     --envs 512) and fisheye_native (the same with fisheye); tri_mesh
+     (loop_obstacles plus one OBJ-registered object, the sample mesh of
+     tests/test_objmesh.py, at mesh_fidelity="triangles"; then one fixed
+     pose per env facing it, kernel vs plain, and the pixels a triangle
+     won, which must be > 0). Each first
      holds both kernels against their plain versions for 12 steps through
      auto-resets (max_steps=5): discrete rows equal, every row within 1e-5
      (measured 0), frames max |diff| 0, the DR rows redrawn and the NPCs
@@ -39,21 +49,30 @@ Phases (any failure exits non-zero and prints no result):
      its output, traces 32 steps with torch.profiler (device ms per
      launch, idle share), times the plain versions on the timed run's
      last blob, holds both kernels against those outputs (same bars) and
-     computes the bounds from that run's inputs;
+     computes the bounds from that run's inputs (frames of more than 2^25
+     pixels in all go through the plain version in slices of envs);
   5. the vector env on the card vs the CPU at 64 envs 32x32 from the
      same states, 5 steps without auto-reset, on loop_obstacles (K3),
-     town_dyn_duckiebots (K4, scripted bots) and udem1 with domain
-     randomization (K4): poses within 1e-5, reward within 1e-4, discrete
-     outputs equal, obs mean |diff| <= 0.01;
+     town_dyn_duckiebots (K4, scripted bots), udem1 with domain
+     randomization (K4), and loop_obstacles and bigtown with fisheye:
+     poses within 1e-5, reward within 1e-4, discrete outputs equal, obs
+     mean |diff| <= 0.01;
   6. the step path at full width: make_vec(<map>, 4096, renderer="pallas")
-     (64x64 RGB, auto-reset, marking AA) on loop_obstacles, on bigtown and
-     on udem1 with domain randomization, timed with CUDA events after a
-     warm-up; row_render_static must launch on the first, row_render on
-     the others; uint8 [4096, 64, 64, 3] frames with std > 5 and finite
-     rewards; the split between physics and render, and a torch.profiler
-     trace of 32 steps (kernel device time per launch, idle share);
+     (64x64 RGB, auto-reset, marking AA) on loop_obstacles, on bigtown, on
+     udem1 with domain randomization, and on loop_obstacles and bigtown
+     with fisheye (bench_all.sh --distortion), timed with CUDA events
+     after a warm-up; row_render_static must launch on the static-scene
+     runs, row_render on the others; uint8 [4096, 64, 64, 3] frames with
+     std > 5 and finite rewards; the split between physics and render,
+     and a torch.profiler trace of 32 steps (kernel device time per
+     launch, idle share);
   7. K3 and K4 vs their plain versions on those runs' 4096-env states, at
-     the blob render's bars, the plain versions' times and the bounds.
+     the blob render's bars, the plain versions' times and the bounds;
+  8. the throughput probe (K5, python -m dtown_torch.probes) in float32
+     and bfloat16 at the reference probe's [4096, 32, 128], 256 steps:
+     the probe's loop (its launches counted), the kernel vs its plain
+     version on seeded inputs (max |diff| 0), the device time per launch
+     from a trace, the rate and the bound.
 Needs CUDA; imports nothing of JAX.
 """
 import json
@@ -88,10 +107,15 @@ K1_OPS_NAV = 10           # the goal check (two floors, compares, bonus)
 K1_OPS_NAV_SHAPING = 20   # the goal-distance shaping term
 K1_OPS_RESET_GOAL = K1_OPS_HASH + 8          # the goal redraw
 K2_OPS_PIXEL = 150        # camera, ground hit, tile shading, sky, output
-K2_OPS_DR_PIXEL = 60      # DR: ray basis, 1/sqrt, ground divide, variant hash
-K2_OPS_BOX_PIXEL = 20     # a kept box object's ray in model space, inverses
+K2_OPS_DR_PIXEL = 50      # DR: NDC table, ray basis, 1/sqrt, ground divide,
+                          # variant hash
+K2_OPS_BOX_PIXEL = 20     # a kept box or triangle object's ray in model
+                          # space, inverses
 K2_OPS_BOX = 40           # one box primitive (slabs, shading, fold)
 K2_OPS_SPHERE = 32        # one sphere primitive
+K2_OPS_TRI = 84           # one triangle: 13 loads, Moeller-Trumbore (pvec,
+                          # det, 1/det, tvec, u, qvec, v, t), tests, flat
+                          # two-sided shading, fold
 # once per env (the kernel repeats them in every thread of the env's block)
 K2_OPS_OBJECT = 8         # distance, optional-bit and half-plane culls
 K2_OPS_BOX_ENV = 12       # a kept box object's eye in model space
@@ -102,11 +126,37 @@ K2_OPS_MAP = 2            # a stack's map test of one object
 STACK3 = ["zigzag_dists", "4way", "udem1"]
 STACK6 = STACK3 + ["small_loop", "loop_obstacles", "s_bend"]
 # row_render.cu (K3 and K4 share the pixel pass and the primitive test)
-K34_OPS_PIXEL = 175       # NDC ramps, ray normalize, ground, tile, sky, output
+K34_OPS_PIXEL = 165       # NDC table, ray normalize, ground, tile, sky, output
 K34_OPS_SLOT = 2          # cull flag test of one object slot
 K34_OPS_OBJECT = 35       # model-space ray and slab reciprocals of an object
 K34_OPS_BOX = 85          # one box: slabs, hit, normal, Lambert, fold
 K34_OPS_SPHERE = 66       # one sphere: quadratic, hit, normal, Lambert, fold
+# K2's plain version in slices of envs above this many pixels in all
+PLAIN_PIXELS = 1 << 25
+# the sample mesh of tests/test_objmesh.py: two wall quads and a roof
+SAMPLE_OBJ = """mtllib duckhouse.mtl
+v -1 0 -1
+v  1 0 -1
+v  1 2 -1
+v -1 2 -1
+v -1 0 1
+v  1 0 1
+v  1 2 1
+v -1 2 1
+usemtl walls
+f 1 2 3 4
+f 5 6 7 8
+v -1.2 2 -1.2
+v  1.2 2 -1.2
+v  0 3 0
+usemtl roof
+f 9 10 11
+"""
+SAMPLE_MTL = """newmtl walls
+Kd 0.7 0.5 0.3
+newmtl roof
+Kd 0.8 0.1 0.1
+"""
 
 
 def nvidia_smi_line():
@@ -241,26 +291,26 @@ def bound(nbytes, nops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def reset_counts():
-    """Set every kernel wrapper's launch count to 0."""
+def _wrappers():
+    from dtown_torch import probes
     from dtown_torch.ops import state_kernel as sk
     from dtown_torch.render import blob_raster as br
     from dtown_torch.render import row_raster as rr
 
-    for fn in (sk.state_step, br.render_frames_from_blob,
-               rr.row_render_static, rr.row_render):
+    return {"state_step": sk.state_step,
+            "blob_render": br.render_frames_from_blob,
+            "row_render_static": rr.row_render_static,
+            "row_render": rr.row_render, "fma_chain": probes.fma_chain}
+
+
+def reset_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    from dtown_torch.ops import state_kernel as sk
-    from dtown_torch.render import blob_raster as br
-    from dtown_torch.render import row_raster as rr
-
-    return {"state_step": sk.state_step.launches,
-            "blob_render": br.render_frames_from_blob.launches,
-            "row_render_static": rr.row_render_static.launches,
-            "row_render": rr.row_render.launches}
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def vec_card_vs_cpu(map_name, dev, **kw):
@@ -410,7 +460,8 @@ def row_kernel_check(run, dev):
     if not (mean <= 0.01 and frac <= 1e-4):
         raise AssertionError(f"{name} kernel outside its bars")
     P = pk["H"] * pk["W"]
-    tabs = ("sof", "soi", "spf", "spi") if pk["static"] else ()
+    tabs = ("ndc",) + (("sof", "soi", "spf", "spi") if pk["static"]
+                       else ())
     nbytes = (states.batch_size * 3 * P
               + sum(r.numel() * r.element_size() for r in rows)
               + sum(pk[k].numel() * pk[k].element_size() for k in tabs))
@@ -469,14 +520,15 @@ def k2_ops(blob, pk, P):
             act = act & ((ox - eye0) * c - (oz - eye2) * s
                          > -of[o, br.O_RV])
         per_env += own * K2_OPS_OBJECT
-        if oi[o, br.OI_BOX]:
+        if oi[o, br.OI_MODEL]:
             per_env += act.double() * K2_OPS_BOX_ENV
             per_pixel += act.double() * K2_OPS_BOX_PIXEL
         p0, n_p = int(oi[o, br.OI_P0]), int(oi[o, br.OI_NP])
+        cost_of = {br.SPHERE_T: K2_OPS_SPHERE, br.BOX_T: K2_OPS_BOX,
+                   br.TRI_T: K2_OPS_TRI}
         for j in range(p0, p0 + n_p):
             gate = act & (d2 < pf[j, br.P_CD2]) if pi[j, br.PI_OWN] else act
-            cost = K2_OPS_BOX if pi[j, br.PI_BOX] else K2_OPS_SPHERE
-            per_pixel += gate.double() * cost
+            per_pixel += gate.double() * cost_of[int(pi[j, br.PI_TYPE])]
     return float(per_pixel.sum()) * P + float(per_env.sum())
 
 
@@ -525,9 +577,11 @@ def k1_bytes(st, nf, B):
 
 
 def k2_bytes(pk, B, P):
+    """Frames written, blob rows and tables read once; the ray input is
+    the static planes or, under DR, the NDC table."""
     tab = sum(pk[k].numel() * pk[k].element_size()
               for k in ("words", "scene", "of", "oi", "pf", "pi"))
-    rays = 0 if pk["dr"] else pk["rays"].numel() * 4
+    rays = pk["rays"].numel() * 4
     rows = (5 + pk["n_npc"] * 3 + (16 if pk["dr"] else 0)
             + (1 if pk["n_maps"] > 1 else 0))
     return B * pk["C"] * P + rows * B * 4 + tab + rays
@@ -562,33 +616,54 @@ def on_own_map(blob, envs, drivable, ts, rows):
                                i.clamp(0, W - 1)]).all())
 
 
-def fused_phase(tag, map_spec, dev, smi, B, S, n_timed, nav=False,
+def render_plain(blob, pk):
+    """K2's plain version on the blob, in slices of envs when the frames
+    hold more than PLAIN_PIXELS pixels in all (its float32 temporaries at
+    512 envs of 640x480 would not fit the card)."""
+    import torch
+    from dtown_torch.render import blob_raster as br
+
+    B, P = blob.shape[1], pk["H"] * pk["W"]
+    n = max(8, PLAIN_PIXELS // P // 8 * 8)
+    if n >= B:
+        return br.render_frames_reference(blob, pk)
+    return torch.cat([br.render_frames_reference(
+        blob[:, i:i + n].contiguous(), pk) for i in range(0, B, n)])
+
+
+def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
                 check=None, **kw):
     """One configuration of the fused rollout on the card: the state
     kernel and the blob render against their plain versions through
     auto-resets (max_steps=5), then a timed run of the configuration as
     given, a profiler window, the plain versions' times and the bounds.
-    map_spec is a map name or a list of names (a stack); nav runs the Nav
-    task with the goal in the observation; ``check`` holds EnvConfig
-    options that only the kernel-vs-plain check takes (a branch that the
-    timed traffic leaves off). Returns the kernels' rows of the JSON line
-    ("bench" keeps the bare kernel names)."""
+    map_spec is a map name, a list of names (a stack) or a compiled map;
+    size is S (S x S frames) or (W, H); nav runs the Nav task with the
+    goal in the observation; ``check`` holds EnvConfig options that only
+    the kernel-vs-plain check takes (a branch that the timed traffic
+    leaves off). Returns the kernels' rows of the JSON line ("bench" keeps
+    the bare kernel names)."""
     import torch
     import dtown_torch
     from dtown_torch.ops import state_kernel as sk
     from dtown_torch.render import blob_raster as br
 
     state_only = kw.get("obs_type") == "state"
+    W, H = (size, size) if isinstance(size, int) else size
     if isinstance(map_spec, str):
         maps = dtown_torch.load_map(map_spec)
-    else:
+        name = map_spec
+    elif isinstance(map_spec, list):
         maps = dtown_torch.stack_maps(map_spec)
+        name = map_spec
+    else:
+        maps, name = map_spec, tag
     drivable = torch.as_tensor(maps.drivable, device=dev)
     if not maps.is_stack:
         drivable = drivable[None]
     ts = float(maps.tile_size.reshape(-1)[0])
     # -- kernels vs plain versions through auto-resets
-    cfg_c = dtown_torch.EnvConfig(camera_width=S, camera_height=S,
+    cfg_c = dtown_torch.EnvConfig(camera_width=W, camera_height=H,
                                   **dict(kw, max_steps=5, **(check or {})))
     ib, fs, _ = make_rollout(cfg_c, maps, B, dev, nav)
     st, pk = fs.tables, fs.pack
@@ -648,19 +723,19 @@ def fused_phase(tag, map_spec, dev, smi, B, S, n_timed, nav=False,
     k2_err = None
     if not state_only:
         img_k = br.render_frames_from_blob(blob, pk)
-        img_r = br.render_frames_reference(blob, pk)
+        img_r = render_plain(blob, pk)
         diff = (img_k.int() - img_r.int()).abs()
         k2_err = float(diff.max())
         mean = float(diff.float().mean())
         del img_k, img_r, diff
-        print(f"{tag}: blob render vs plain on that blob, {B} envs {S}x{S}"
+        print(f"{tag}: blob render vs plain on that blob, {B} envs {W}x{H}"
               f" C={pk['C']}: max |diff| {k2_err:.0f}, mean {mean:.3g}")
         if k2_err > 0:
             raise AssertionError(f"{tag}: blob render kernel differs from "
                                  f"its plain version")
     del fs, ib
     # -- the configuration as given, timed
-    cfg = dtown_torch.EnvConfig(camera_width=S, camera_height=S, **kw)
+    cfg = dtown_torch.EnvConfig(camera_width=W, camera_height=H, **kw)
     init_blob, fused_step, rollout = make_rollout(cfg, maps, B, dev, nav)
     st, pk = fused_step.tables, fused_step.pack
     blob = init_blob(torch.Generator(device=dev).manual_seed(1))
@@ -680,11 +755,11 @@ def fused_phase(tag, map_spec, dev, smi, B, S, n_timed, nav=False,
     rate = B * n_timed / (ms / 1e3)
     _, out, obs = fused_step(blob, actions)
     torch.cuda.synchronize()
-    print(f"{tag}: fused {'Nav ' if nav else ''}rollout {map_spec} {kw} "
-          f"{B} envs {S}x{S}: {n_timed} steps in {ms:.2f} ms = {rate:.6g} "
+    print(f"{tag}: fused {'Nav ' if nav else ''}rollout {name} {kw} "
+          f"{B} envs {W}x{H}: {n_timed} steps in {ms:.2f} ms = {rate:.6g} "
           f"env-steps/s ({ms / n_timed:.4f} ms/step) on {smi}; launches "
           f"{launches}")
-    want = (B, 11) if state_only else (B, pk["C"], S * S // 128, 128)
+    want = (B, 11) if state_only else (B, pk["C"], W * H // 128, 128)
     if nav:
         goal = obs[1]
         obs = obs[0]
@@ -739,9 +814,8 @@ def fused_phase(tag, map_spec, dev, smi, B, S, n_timed, nav=False,
           f" (plain {k1_plain:.4f} ms), bound {k1_b[0]:.6f} ms by "
           f"{k1_b[1]}")
     if not state_only:
-        P = S * S
-        k2_plain, img_r = cuda_ms(
-            lambda: br.render_frames_reference(blob, pk), 2)
+        P = W * H
+        k2_plain, img_r = cuda_ms(lambda: render_plain(blob, pk), 2)
         img_k = br.render_frames_from_blob(blob, pk)
         k2_last = float((img_k.int() - img_r.int()).abs().max())
         del img_k, img_r
@@ -763,6 +837,137 @@ def fused_phase(tag, map_spec, dev, smi, B, S, n_timed, nav=False,
               f"ms/launch (plain {k2_plain:.4f} ms), bound {k2_b[0]:.6f} "
               f"ms by {k2_b[1]}")
     torch.cuda.empty_cache()
+    return rows
+
+
+def tri_mesh_map():
+    """loop_obstacles' map with one more object: the sample mesh, written
+    under build/chip_smoke/ and registered as kind "duckhouse", on the
+    asphalt inside the loop beside the top straight (20 cm tall)."""
+    import os
+    import yaml
+    import dtown_torch
+    from dtown_torch import map_loader
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    for fn, text in (("duckhouse.obj", SAMPLE_OBJ),
+                     ("duckhouse.mtl", SAMPLE_MTL)):
+        with open(os.path.join(d, fn), "w") as f:
+            f.write(text)
+    dtown_torch.register_custom_object("duckhouse",
+                                       os.path.join(d, "duckhouse.obj"))
+    with open(os.path.join(map_loader.MAPS_DIR, "loop_obstacles.yaml")) as f:
+        data = yaml.safe_load(f)
+    data["objects"].append({"kind": "duckhouse", "pos": [1.5, 1.5],
+                            "rotate": 90, "height": 0.2, "static": True})
+    return map_loader.compile_map(data)
+
+
+def tri_pixels_won(maps, dev):
+    """Eight envs posed 0.5 m from the mesh object, facing it from eight
+    directions, 64x64 RGB at triangle fidelity: the blob render kernel vs
+    its plain version (max |diff| 0), and the pixels a triangle won, those
+    that change when the mesh object is culled. Returns that count."""
+    import math
+    import torch
+    import dtown_torch
+    from dtown_torch import types as T
+    from dtown_torch.ops import state_kernel as sk
+    from dtown_torch.render import blob_raster as br
+
+    cfg = dtown_torch.EnvConfig(camera_width=64, camera_height=64,
+                                mesh_fidelity="triangles")
+    B = 8
+    ib, fs, _ = dtown_torch.make_fused_rollout(cfg, maps, B, device=dev)
+    pk = fs.pack
+    blob = ib(torch.Generator(device=dev).manual_seed(5))
+    kinds = maps.numpy().obj_kind
+    slot = [i for i, k in enumerate(kinds) if k == T.OBJ_KIND_IDS[
+        "duckhouse"]][0]
+    ox, _, oz = (float(v) for v in maps.numpy().obj_pos[slot])
+    for b in range(B):
+        a = -math.pi + 2.0 * math.pi * b / B
+        blob[sk.F_POS_X, b] = ox - 0.5 * math.cos(a)
+        blob[sk.F_POS_Z, b] = oz + 0.5 * math.sin(a)
+        blob[sk.F_ANGLE, b] = a
+    img_k = br.render_frames_from_blob(blob, pk)
+    img_r = br.render_frames_reference(blob, pk)
+    err = float((img_k.int() - img_r.int()).abs().max())
+    tri_objs = [o for o in range(pk["n_objs"])
+                if int(pk["pi"][int(pk["oi"][o, br.OI_P0]), br.PI_TYPE])
+                == br.TRI_T]
+    culled = dict(pk, of=pk["of"].clone())
+    culled["of"][tri_objs, br.O_CULL2] = 0.0
+    img_c = br.render_frames_from_blob(blob, culled)
+    won = int((img_c != img_k).any(1).sum())
+    print(f"tri_mesh fixed poses, {B} envs 64x64: blob render vs plain max "
+          f"|diff| {err:.0f}; pixels a triangle won {won} of "
+          f"{B * 64 * 64} ({len(tri_objs)} mesh object(s), "
+          f"{int((pk['pi'][:, br.PI_TYPE] == br.TRI_T).sum())} triangles)")
+    if err > 0 or won <= 0:
+        raise AssertionError("tri_mesh: triangles missing or the kernel "
+                             "differs from its plain version")
+    return won
+
+
+def probe_phase(dev, smi):
+    """K5: the probe's loop in float32 and bfloat16 (counts of its run),
+    the kernel vs its plain version on seeded inputs in [0.5, 1), the
+    device time per launch from a trace, the rate and the bound. Returns
+    the kernels' rows of the JSON line."""
+    import torch
+    from dtown_torch import probes
+
+    x = torch.rand(probes.SHAPE, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev) * 0.5 + 0.5
+    n = x.numel()
+    rows = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        kname = f"fma_chain_{tag}_kernel"
+        reset_counts()  # counts of the probe's run only
+        ms_iter, out = probes.run(dtype, torch.full(probes.SHAPE, 0.99,
+                                                    device=dev))
+        launches = read_counts()["fma_chain"]
+        if launches <= 0 or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"probe {tag}: no launch or no output")
+        y_k = probes.fma_chain(x, dtype)
+        plain_ms, y_r = cuda_ms(
+            lambda: probes.fma_chain_reference(x, dtype), 2)
+        err = float((y_k - y_r).abs().max())
+        def window(x=x, dtype=dtype):
+            for _ in range(8):      # the probe's loop body
+                x = probes.fma_chain(x, dtype) * (1.0 - 1e-7)
+
+        dev_ms, _, _ = profile_window(window, [kname])
+        how = "trace"
+        if kname not in dev_ms:
+            # the trace held no device time for it: CUDA events around 20
+            # back-to-back launches (the card runs nothing else)
+            dev_ms[kname] = cuda_ms(lambda: probes.fma_chain(x, dtype),
+                                    20)[0]
+            how = "CUDA events"
+        # one instruction per multiply or add; bf16x2 instructions work on
+        # two elements each, at the float32 issue rate
+        nops = n * probes.OPS * 2 / (2 if tag == "bf16" else 1)
+        b_ms, b_by = bound(n * 8, nops)
+        rate = n * probes.OPS * 2 / (ms_iter / 1e3)
+        print(f"probe {tag}: {ms_iter:.4f} ms/iter in the probe's loop "
+              f"({rate / 1e12:.3f} Tflop/s, {launches} launches); kernel "
+              f"{dev_ms[kname]:.5f} ms/launch ({how}; plain "
+              f"{plain_ms:.3f} ms), "
+              f"bound {b_ms:.6f} ms by {b_by}; vs plain max |diff| {err:.3g}"
+              f" on {smi}")
+        if err > 0:
+            raise AssertionError(f"probe {tag}: kernel differs from its "
+                                 f"plain version")
+        rows.append(dict(name=f"fma_chain[{tag}]", route="cuda",
+                         source="dtown_torch/csrc/fma_probe.cu",
+                         replaces="scripts/bf16_probe.py:18",
+                         launches=launches, max_abs_err=err,
+                         ms=dev_ms[kname], plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None))
     return rows
 
 
@@ -836,33 +1041,54 @@ def main():
             # Nav at train_ppo.py's default (no shaping); the check also
             # drives the shaping branch
             ("nav_stack", STACK3, 4096, 64, 64,
-             dict(nav=True, check=dict(nav_shaping_coef=2.0)))):
+             dict(nav=True, check=dict(nav_shaping_coef=2.0))),
+            ("fisheye", "loop_obstacles", 4096, 64, 256,
+             dict(distortion=True)),
+            ("fisheye_dr", "small_loop", 4096, 64, 64,
+             dict(domain_rand=True, distortion=True)),
+            ("native_res", "loop_obstacles", 512, (640, 480), 64, {}),
+            ("fisheye_native", "loop_obstacles", 512, (640, 480), 64,
+             dict(distortion=True))):
         kernels += fused_phase(tag, map_name, dev, smi, B, S, n_t, **kw)
+    tri_map = tri_mesh_map()
+    kernels += fused_phase("tri_mesh", tri_map, dev, smi, 4096, 64, 64,
+                           mesh_fidelity="triangles")
+    tri_pixels_won(tri_map, dev)
 
     # ---- the step path: vector env on the card vs the CPU ---------------------------
     for name, kw in (("loop_obstacles", {}), ("town_dyn_duckiebots", {}),
-                     ("udem1", dict(domain_rand=True))):
+                     ("udem1", dict(domain_rand=True)),
+                     ("loop_obstacles", dict(distortion=True)),
+                     ("bigtown", dict(distortion=True))):
         vec_card_vs_cpu(name, dev, **kw)
 
     # ---- the step path at full width: K3 map, K4 map, K4 under DR --------------------
     replaces = {"row_render_static": "dtown/render/pallas_raster.py:861",
                 "row_render": "dtown/render/pallas_raster.py:326"}
-    for name, kname, n_t, kw in (
-            ("loop_obstacles", "row_render_static", 128, {}),
-            ("bigtown", "row_render", 128, {}),
-            ("udem1", "row_render", 64, dict(domain_rand=True))):
+    for name, kname, sfx, n_t, kw in (
+            ("loop_obstacles", "row_render_static", "", 128, {}),
+            ("bigtown", "row_render", "", 128, {}),
+            ("udem1", "row_render", "[udem1_dr]", 64,
+             dict(domain_rand=True)),
+            ("loop_obstacles", "row_render_static", "[fisheye]", 64,
+             dict(distortion=True)),
+            ("bigtown", "row_render", "[fisheye]", 64,
+             dict(distortion=True))):
         run = vec_main_path(name, dev, smi, n_steps=n_t, **kw)
         if run["launches"][kname] <= 0:
             raise AssertionError(f"{kname} never launched on {name}")
         err, plain_ms, b_ms, b_by = row_kernel_check(run, dev)
         kernels.append(dict(
-            name=kname + ("[udem1_dr]" if kw else ""), route="cuda",
+            name=kname + sfx, route="cuda",
             source="dtown_torch/csrc/row_render.cu", replaces=replaces[kname],
             launches=run["launches"][kname], max_abs_err=err, ms=run["ms"],
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
         del run
         torch.cuda.empty_cache()
+
+    # ---- the throughput probe (K5) --------------------------------------------------
+    kernels += probe_phase(dev, smi)
     print(f"total wall {time.time() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -6,16 +6,20 @@ rollout (state step + blob render; one map or a stack of maps from
 observations, and the Nav task with ``make_fused_nav_rollout``) and the
 vectorized step API (``make_vec``: batched physics + the row-fed render,
 single maps) run through hand-written CUDA kernels (csrc/), each with a
-plain torch version that the CPU runs.
+plain torch version that the CPU runs. Both take fisheye frames
+(``distortion=True``) and any frame size with H*W % 128 == 0; object kinds
+registered from OBJ files (``register_custom_object``) render as
+triangles on the fused rollout under ``mesh_fidelity="triangles"``.
 """
 from dtown_torch.map_loader import load_map, stack_maps
 from dtown_torch.ops.fused_env import make_fused_nav_rollout, \
     make_fused_rollout
+from dtown_torch.render.objmesh import register_custom_object
 from dtown_torch.types import EnvConfig, EnvState, StepOutput
 
 __all__ = ["EnvConfig", "EnvState", "StepOutput", "load_map",
            "make_fused_nav_rollout", "make_fused_rollout", "make_vec",
-           "stack_maps"]
+           "register_custom_object", "stack_maps"]
 
 
 def make_vec(map_name, num_envs: int, device="cuda", **kwargs):

@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel dtown/render/blob_raster.py::
 // _make_blob_kernel (launched by render_frames_from_blob): RGB or one luma
-// plane, static rays or (domain randomization) per-env rays, static
-// objects, moving NPCs posed from the blob rows, optional objects gated by
-// the env's visibility bits; one map or a stack of maps. The plain
-// version is
+// plane, static rays or (domain randomization) per-env rays, fisheye
+// through the ray tables, static objects of spheres, boxes and (OBJ kinds
+// at triangle fidelity) triangles, moving NPCs posed from the blob rows,
+// optional objects gated by the env's visibility bits; one map or a stack
+// of maps; any frame size with H*W % 128 == 0. The plain version is
 // dtown_torch/render/blob_raster.py::render_frames_reference; this file
 // keeps its float32 operation order.
 //
@@ -28,14 +29,24 @@
 //    kernel's view half-plane cull.
 //  * Without domain randomization the static ray planes [5, H*W] (A, B, D,
 //    E, F; a sixth, the sky luma, under grayscale) are inputs; per env a
-//    ray is a yaw rotation of two planes. Reads are coalesced.
+//    ray is a yaw rotation of two planes. Reads are coalesced. Under
+//    domain randomization the input is the NDC table [2, H*W] that the
+//    env's tan(fov/2) scales: the linear ramps (baked on the host in the
+//    kernel's float32 operation order) or the fisheye lens table, so
+//    fisheye needs no kernel of its own. The TPU kernel tiles frames of
+//    more than 256 sublane rows (640x480) over a second grid axis to
+//    bound its VMEM; here blockIdx.y already walks the pixel blocks.
 //  * The scene is not compiled into the kernel as on the TPU: the plan
 //    arrives as flat float/int tables (objects, primitives) that every
 //    thread walks in the same order, so one binary serves every map.
 //  * The mode flags (domain randomization, grayscale, moving NPCs, a stack
-//    of maps) are template parameters, so each path keeps
-//    only its own registers (the static RGB path compiles as it did
-//    before the other paths joined).
+//    of maps, triangle primitives) are template parameters, so each path
+//    keeps only its own registers (the static RGB path compiles as it did
+//    before the other paths joined): 32 kernels.
+//  * A triangle is a third primitive type beside box and sphere:
+//    Moeller-Trumbore in the object's model space against the baked
+//    v0/e1/e2, with the reference's operation order and its determinant
+//    guard, and flat two-sided shading (the sign of n . d picks n . l).
 //  * A stack of maps: each block reads its env's map row once, offsets its
 //    word index by mid * npw (the stacked words are the members' segments)
 //    and skips every object of another member with a block-uniform branch.
@@ -71,33 +82,35 @@ constexpr int DR_OBJVIS = 15;
 constexpr int S_CAMF = 0, S_CAMH = 1, S_TSINV = 2, S_KFW = 3, S_SHADE = 4;
 constexpr int S_GR = 5, S_HR = 8, S_AMB = 11, S_KD = 12, S_LW = 13;
 constexpr int S_DT = 16, S_INVTL = 17, S_ASPECT = 18, S_DEG = 19;
-constexpr int S_HALFH = 20, S_INVW = 21, S_INVH = 22, S_LEMPTY = 23;
-constexpr int S_LROAD = 24, S_LGRASS = 25, S_LFLOOR = 26, S_LY = 27;
-constexpr int S_LW_ = 28, S_AOTHER = 29, S_AGRASS = 30, S_AROAD = 31;
-constexpr int S_LOUT = 32, S_LGREEN = 33, S_LRED = 34;
+constexpr int S_HALFH = 20, S_LEMPTY = 21, S_LROAD = 22, S_LGRASS = 23;
+constexpr int S_LFLOOR = 24, S_LY = 25, S_LW_ = 26, S_AOTHER = 27;
+constexpr int S_AGRASS = 28, S_AROAD = 29, S_LOUT = 30, S_LGREEN = 31;
+constexpr int S_LRED = 32;
 // object table (blob_raster.py O_*, OI_*)
 constexpr int OBJ_F = 12, OBJ_I = 8;
 constexpr int O_X = 0, O_Y = 1, O_Z = 2, O_SR = 3, O_CR = 4, O_INVS = 5;
 constexpr int O_SC = 6, O_LMX = 7, O_LMY = 8, O_LMZ = 9, O_CULL2 = 10;
 constexpr int O_RV = 11;
-constexpr int OI_P0 = 0, OI_NP = 1, OI_BOX = 2, OI_NPC = 3, OI_OPT = 4;
+constexpr int OI_P0 = 0, OI_NP = 1, OI_MODEL = 2, OI_NPC = 3, OI_OPT = 4;
 constexpr int OI_WIG = 5, OI_PRED = 6, OI_MAP = 7;
 // primitive table (P_*, PI_*)
-constexpr int PRIM_F = 13, PRIM_I = 4;
+// (a triangle: v0 in P_C*, e1 in P_P*, e2 in P_E2*, normal in P_N*)
+constexpr int PRIM_F = 20, PRIM_I = 4;
 constexpr int P_CX = 0, P_CY = 1, P_CZ = 2, P_P0 = 3, P_P1 = 4, P_P2 = 5;
 constexpr int P_CD2 = 6, P_CWX = 7, P_CWY = 8, P_CWZ = 9, P_RW2 = 10;
-constexpr int P_NDV = 11, P_LUMA = 12;
-constexpr int PI_BOX = 0, PI_LAMP = 1, PI_COLOR = 2, PI_OWN = 3;
+constexpr int P_NDV = 11, P_LUMA = 12, P_E2X = 13, P_NX = 16, P_NDL = 19;
+constexpr int PI_TYPE = 0, PI_LAMP = 1, PI_COLOR = 2, PI_OWN = 3;
+constexpr int BOX_T = 1, TRI_T = 2;  // PI_TYPE values (0: sphere)
 
 struct Scene {
-  const float* rays;   // [5 or 6, P]
+  const float* rays;   // static planes [5 or 6, P]; under DR the NDC [2, P]
   const int* words;
   const float* sc;     // scene floats
   const float* of;     // [n_objs, OBJ_F]
   const int* oi;       // [n_objs, OBJ_I]
   const float* pf;     // [n_prims, PRIM_F]
   const int* pi;       // [n_prims, PRIM_I]
-  int P, W, n_words, Hg, Wg, n_objs;
+  int P, n_words, Hg, Wg, n_objs;
   int aa, any_x, no_clamp, lamp_green, lamp_red, drb;
   int n_maps, npw;     // a stack's member count and word segment
 };
@@ -154,10 +167,11 @@ __device__ __forceinline__ float noise_amp(int kind, const float* sc) {
                                       : __ldg(sc + S_AOTHER));
 }
 
-// DR, GRAY and NPC (the plan has moving NPCs) are compile-time: each
-// combination compiles to its own kernel, so the static RGB path carries
-// no register cost of the others
-template <bool DR, bool GRAY, bool NPC, bool MULTI>
+// DR, GRAY, NPC (the plan has moving NPCs), MULTI (a stack) and TRI (the
+// plan has triangles) are compile-time: each combination compiles to its
+// own kernel, so the static RGB path carries no register cost of the
+// others
+template <bool DR, bool GRAY, bool NPC, bool MULTI, bool TRI>
 __global__ void __launch_bounds__(THREADS)
 blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
                    unsigned char* __restrict__ out) {
@@ -231,15 +245,10 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
   float dx, dy, dz, t_g, skyf, inv_dy, inv_fw = 0.0f;
   bool gmask;
   if (dr) {
-    // per-pixel camera basis, normalization and ground divide
-    const int y = p / s.W;
-    const int x = p - y * s.W;
-    const float xn_b = ((static_cast<float>(x) + 0.5f) * SC(S_INVW) - 0.5f)
-                       * 2.0f;
-    const float yn_b = (0.5f - (static_cast<float>(y) + 0.5f) * SC(S_INVH))
-                       * 2.0f;
-    const float xn = xn_b * tanx;
-    const float yn = yn_b * tany;
+    // per-pixel camera basis from the NDC table, normalization and
+    // ground divide
+    const float xn = __ldg(s.rays + p) * tanx;
+    const float yn = __ldg(s.rays + s.P + p) * tany;
     const float fwd_x = cp * c_a, fwd_y = -sp, fwd_z = -cp * s_a;
     const float up_x = sp * c_a, up_y = cp, up_z = -sp * s_a;
     dx = fwd_x + xn * s_a + yn * up_x;
@@ -394,17 +403,18 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
       const int p0 = __ldg(oiv + OI_P0);
       const int np = __ldg(oiv + OI_NP);
       float ey = 0.f, emx = 0.f, emz = 0.f, inv_dmx = 0.f, inv_dmz = 0.f;
-      float wx = 0.f, wy = 0.f, wz = 0.f;
+      float wx = 0.f, wy = 0.f, wz = 0.f, dmx = 0.f, dmz = 0.f;
       const float osc = __ldg(ov + O_SC);
-      if (__ldg(oiv + OI_BOX)) {
+      if (__ldg(oiv + OI_MODEL)) {
+        // a box or triangle object: the rays in model space
         const float inv_s = __ldg(ov + O_INVS);
         const float ex = (eye0 - ox) * inv_s;
         ey = (eye1 - oy) * inv_s;
         const float ez = (eye2 - oz) * inv_s;
         emx = ex * c_r + ez * s_r;
         emz = ez * c_r - ex * s_r;
-        const float dmx = dx * c_r + dz * s_r;
-        const float dmz = dz * c_r - dx * s_r;
+        dmx = dx * c_r + dz * s_r;
+        dmz = dz * c_r - dx * s_r;
         inv_dmx = safe_inv(dmx);
         inv_dmz = safe_inv(dmz);
         wx = dmx >= 0.0f ? lmx : -lmx;
@@ -418,7 +428,41 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
           continue;  // LOD cull of this primitive (uniform)
         float t_w, dv;
         bool ok_p;
-        if (__ldg(piv + PI_BOX)) {
+        const int ptype = __ldg(piv + PI_TYPE);
+        if (TRI && ptype == TRI_T) {
+          // Moeller-Trumbore in model space: the per-env tvec and qvec
+          // against the baked v0, e1, e2
+          const float e1x = __ldg(pv + P_P0), e1y = __ldg(pv + P_P1);
+          const float e1z = __ldg(pv + P_P2);
+          const float e2x = __ldg(pv + P_E2X), e2y = __ldg(pv + P_E2X + 1);
+          const float e2z = __ldg(pv + P_E2X + 2);
+          const float pvx = dy * e2z - dmz * e2y;
+          const float pvy = dmz * e2x - dmx * e2z;
+          const float pvz = dmx * e2y - dy * e2x;
+          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+          const bool ok_det = fabsf(det) > 1e-12f;
+          const float inv_det = (ok_det ? 1.0f : 0.0f)
+                                / (ok_det ? det : 1.0f);
+          const float tvx = emx - __ldg(pv + P_CX);
+          const float tvy = ey - __ldg(pv + P_CY);
+          const float tvz = emz - __ldg(pv + P_CZ);
+          const float u_b = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+          const float qvx = tvy * e1z - tvz * e1y;
+          const float qvy = tvz * e1x - tvx * e1z;
+          const float qvz = tvx * e1y - tvy * e1x;
+          const float v_b = (dmx * qvx + dy * qvy + dmz * qvz) * inv_det;
+          const float t_m = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+          ok_p = (u_b >= 0.0f) & (v_b >= 0.0f) & (u_b + v_b <= 1.0f)
+                 & (t_m > 1e-4f);
+          t_w = t_m * osc;
+          // flat two-sided shading
+          const float nx = __ldg(pv + P_NX), ny = __ldg(pv + P_NX + 1);
+          const float nz = __ldg(pv + P_NX + 2);
+          const float ndl = dr ? nx * lmx + ny * lmy + nz * lmz
+                               : __ldg(pv + P_NDL);
+          const float nd = nx * dmx + ny * dy + nz * dmz;
+          dv = nd > 0.0f ? ndl : -ndl;
+        } else if (ptype == BOX_T) {
           const float ocx = emx - __ldg(pv + P_CX);
           const float ocy = ey - __ldg(pv + P_CY);
           const float ocz = emz - __ldg(pv + P_CZ);
@@ -496,6 +540,20 @@ blob_render_kernel(const float* __restrict__ blob, int B, Scene s,
   }
 }
 
+// Launch the specialisation of the mode flags flags[0..4] (DR, GRAY, NPC,
+// MULTI, TRI), picking one template argument at a time.
+template <bool... F>
+void launch(const bool* flags, dim3 grid, cudaStream_t st, const float* blob,
+            int B, const Scene& s, unsigned char* out) {
+  if constexpr (sizeof...(F) == 5) {
+    blob_render_kernel<F...><<<grid, THREADS, 0, st>>>(blob, B, s, out);
+  } else if (flags[sizeof...(F)]) {
+    launch<F..., true>(flags, grid, st, blob, B, s, out);
+  } else {
+    launch<F..., false>(flags, grid, st, blob, B, s, out);
+  }
+}
+
 }  // namespace
 
 extern "C" int dtown_blob_render(const float* blob, const float* rays,
@@ -507,38 +565,16 @@ extern "C" int dtown_blob_render(const float* blob, const float* rays,
                                  int aa, int any_x, int no_clamp,
                                  int lamp_green, int lamp_red, int dr,
                                  int gray, int npc, int drb, int n_maps,
-                                 int npw, void* stream) {
+                                 int npw, int tri, void* stream) {
   const int P = H * W;
-  Scene s{rays, words, scene, of, oi, pf, pi, P, W, n_words, Hg, Wg,
+  Scene s{rays, words, scene, of, oi, pf, pi, P, n_words, Hg, Wg,
           n_objs, aa, any_x, no_clamp, lamp_green, lamp_red, drb, n_maps,
           npw};
+  // grid.y = 1200 at 640x480, far below its limit of 65535
   const dim3 grid(B, (P + THREADS - 1) / THREADS);
-  auto st = static_cast<cudaStream_t>(stream);
-  // dr, gray, npc (the plan has moving NPCs) and a stack pick the
-  // specialisation
-  switch ((dr ? 8 : 0) | (gray ? 4 : 0) | (npc ? 2 : 0) | (n_maps > 1)) {
-#define DT_LAUNCH(k, D, G, N, M_)                                        \
-  case k:                                                                \
-    blob_render_kernel<D, G, N, M_><<<grid, THREADS, 0, st>>>(blob, B, s, \
-                                                             out);       \
-    break;
-    DT_LAUNCH(0, false, false, false, false)
-    DT_LAUNCH(1, false, false, false, true)
-    DT_LAUNCH(2, false, false, true, false)
-    DT_LAUNCH(3, false, false, true, true)
-    DT_LAUNCH(4, false, true, false, false)
-    DT_LAUNCH(5, false, true, false, true)
-    DT_LAUNCH(6, false, true, true, false)
-    DT_LAUNCH(7, false, true, true, true)
-    DT_LAUNCH(8, true, false, false, false)
-    DT_LAUNCH(9, true, false, false, true)
-    DT_LAUNCH(10, true, false, true, false)
-    DT_LAUNCH(11, true, false, true, true)
-    DT_LAUNCH(12, true, true, false, false)
-    DT_LAUNCH(13, true, true, false, true)
-    DT_LAUNCH(14, true, true, true, false)
-    DT_LAUNCH(15, true, true, true, true)
-#undef DT_LAUNCH
-  }
+  // dr, gray, npc (the plan has moving NPCs), a stack and triangles pick
+  // the specialisation
+  const bool flags[5] = {dr != 0, gray != 0, npc != 0, n_maps > 1, tri != 0};
+  launch<>(flags, grid, static_cast<cudaStream_t>(stream), blob, B, s, out);
   return static_cast<int>(cudaGetLastError());
 }

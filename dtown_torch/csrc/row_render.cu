@@ -21,8 +21,12 @@
 //    row, the object rows and the cull flags are block-uniform. They are
 //    loaded once per block into shared memory, and an object whose cull
 //    flag is off is skipped by the whole block without divergence.
-//  * The TPU kernels build the pixel ray from iota ramps; here from the
-//    thread's pixel index with the same float ops.
+//  * The TPU kernels build the pixel ray from iota ramps, or under fisheye
+//    from the inverted lens model's NDC table (_ndc_planes); here both
+//    kernels read an NDC table [2, H*W] always: the linear ramps baked on
+//    the host with the kernels' float ops (a division by W and by H), or
+//    the fisheye table. The pixel's ray is then the table entry times the
+//    env's tan(fov/2), as in the TPU kernels.
 //  * K3's scene is not compiled into the kernel: it arrives as small
 //    object/primitive tables (row_raster.pack_static_scene) that every
 //    thread walks in order, so one binary serves every map. The constants
@@ -62,7 +66,7 @@ constexpr int SP_P2 = 5, SP_R = 6, SP_P0SQ = 9, SP_IP0 = 10;
 constexpr int MAX_STATIC = 16;
 
 struct Dims {
-  int P, H, W, n_words, Hg, Wg, aa, any_x;
+  int P, H, n_words, Hg, Wg, aa, any_x;
 };
 
 // A pixel after the ground pass: world ray, nearest hit so far, color.
@@ -89,13 +93,10 @@ __device__ __forceinline__ unsigned char to_u8(float x) {
 // Ray setup, ground hit, tile shading and sky (row_raster._ground).
 __device__ __forceinline__ Px ground_pass(const float* cam,
                                           const int* __restrict__ words,
+                                          const float* __restrict__ ndc,
                                           int p, const Dims& d) {
-  const int y = p / d.W;
-  const int x = p - y * d.W;
-  const float xn = ((static_cast<float>(x) + 0.5f) / static_cast<float>(d.W)
-                    - 0.5f) * 2.0f * cam[C_TANX];
-  const float yn = (0.5f - (static_cast<float>(y) + 0.5f)
-                    / static_cast<float>(d.H)) * 2.0f * cam[C_TANY];
+  const float xn = __ldg(ndc + p) * cam[C_TANX];
+  const float yn = __ldg(ndc + d.P + p) * cam[C_TANY];
   float dx = cam[C_FWD] + xn * cam[C_RIGHT] + yn * cam[C_UP];
   float dy = cam[C_FWD + 1] + xn * cam[C_RIGHT + 1] + yn * cam[C_UP + 1];
   float dz = cam[C_FWD + 2] + xn * cam[C_RIGHT + 2] + yn * cam[C_UP + 2];
@@ -258,6 +259,7 @@ __device__ __forceinline__ void store(unsigned char* __restrict__ out,
 __global__ void __launch_bounds__(THREADS)
 row_render_static_kernel(const float* __restrict__ cam,
                          const int* __restrict__ words,
+                         const float* __restrict__ ndc,
                          const float* __restrict__ flags,
                          const float* __restrict__ sof,
                          const int* __restrict__ soi,
@@ -277,8 +279,8 @@ row_render_static_kernel(const float* __restrict__ cam,
   const int p = blockIdx.y * THREADS + threadIdx.x;
   if (p >= d.P) return;
 
-  Px px = ground_pass(s_cam, words + static_cast<size_t>(e) * d.n_words, p,
-                      d);
+  Px px = ground_pass(s_cam, words + static_cast<size_t>(e) * d.n_words, ndc,
+                      p, d);
   for (int o = 0; o < n_objs; ++o) {
     if (!(s_flags[2 * o] > 0.5f)) continue;  // culled: uniform per block
     const bool green = s_flags[2 * o + 1] > 0.5f;
@@ -325,6 +327,7 @@ row_render_static_kernel(const float* __restrict__ cam,
 __global__ void __launch_bounds__(THREADS)
 row_render_kernel(const float* __restrict__ cam,
                   const int* __restrict__ words,
+                  const float* __restrict__ ndc,
                   const float* __restrict__ obj,
                   const float* __restrict__ prim,
                   unsigned char* __restrict__ out, Dims d, int kvis) {
@@ -343,8 +346,8 @@ row_render_kernel(const float* __restrict__ cam,
   const int p = blockIdx.y * THREADS + threadIdx.x;
   if (p >= d.P) return;
 
-  Px px = ground_pass(s_cam, words + static_cast<size_t>(e) * d.n_words, p,
-                      d);
+  Px px = ground_pass(s_cam, words + static_cast<size_t>(e) * d.n_words, ndc,
+                      p, d);
   for (int k = 0; k < kvis; ++k) {
     const float* ov = s_obj + k * OBJ_F;
     if (!(ov[7] > 0.5f)) continue;  // inactive slot: uniform per block
@@ -373,31 +376,31 @@ row_render_kernel(const float* __restrict__ cam,
 }  // namespace
 
 extern "C" int dtown_row_render_static(
-    const float* cam, const int* words, const float* flags, const float* sof,
-    const int* soi, const float* spf, const int* spi, unsigned char* out,
-    int B, int H, int W, int n_words, int Hg, int Wg, int n_objs, int aa,
-    int any_x, void* stream) {
+    const float* cam, const int* words, const float* ndc, const float* flags,
+    const float* sof, const int* soi, const float* spf, const int* spi,
+    unsigned char* out, int B, int H, int W, int n_words, int Hg, int Wg,
+    int n_objs, int aa, int any_x, void* stream) {
   if (n_objs > MAX_STATIC) return static_cast<int>(cudaErrorInvalidValue);
-  const Dims d{H * W, H, W, n_words, Hg, Wg, aa, any_x};
+  const Dims d{H * W, H, n_words, Hg, Wg, aa, any_x};
   const dim3 grid(B, (d.P + THREADS - 1) / THREADS);
   row_render_static_kernel<<<grid, THREADS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      cam, words, flags, sof, soi, spf, spi, out, d, n_objs);
+      cam, words, ndc, flags, sof, soi, spf, spi, out, d, n_objs);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dtown_row_render(const float* cam, const int* words,
-                                const float* obj, const float* prim,
-                                unsigned char* out, int B, int H, int W,
-                                int n_words, int Hg, int Wg, int kvis,
-                                int aa, int any_x, void* stream) {
-  const Dims d{H * W, H, W, n_words, Hg, Wg, aa, any_x};
+                                const float* ndc, const float* obj,
+                                const float* prim, unsigned char* out, int B,
+                                int H, int W, int n_words, int Hg, int Wg,
+                                int kvis, int aa, int any_x, void* stream) {
+  const Dims d{H * W, H, n_words, Hg, Wg, aa, any_x};
   const size_t smem = sizeof(float) * (CAM_F + kvis * OBJ_F
                                        + kvis * P_MAX * PRIM_F);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B, (d.P + THREADS - 1) / THREADS);
   row_render_kernel<<<grid, THREADS, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      cam, words, obj, prim, out, d, kvis);
+      cam, words, ndc, obj, prim, out, d, kvis);
   return static_cast<int>(cudaGetLastError());
 }

@@ -75,20 +75,15 @@ def check_single_map(maps):
 
 
 def check_row_render_scope(cfg: EnvConfig):
-    """Raise NotImplementedError for the render options the step path's
-    row-fed kernels do not have yet."""
+    """Raise NotImplementedError for a renderer the step path does not
+    have yet. Fisheye renders through the row-fed kernels' NDC table, and
+    mesh_fidelity is ignored there, as in the reference (OBJ kinds render
+    as their material boxes)."""
     if cfg.renderer != "pallas":
         raise NotImplementedError(
             f"renderer={cfg.renderer!r}: the XLA ray-caster "
             "(render/raster.py) is not ported yet; pass "
             "renderer='pallas' for the row-fed CUDA render kernels")
-    if cfg.distortion:
-        raise NotImplementedError(
-            "fisheye distortion (the _ndc_planes ray table) is not "
-            "ported yet")
-    if cfg.mesh_fidelity == "triangles":
-        raise NotImplementedError(
-            "triangle-mesh objects are not ported yet")
 
 
 def active_objects(maps, state):

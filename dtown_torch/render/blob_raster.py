@@ -22,8 +22,15 @@ A stack of maps (map_loader.stack_maps) renders through one merged plan:
 each env reads its map row (F_MAPID) once, offsets its tile-word index
 into its member's segment and skips the objects of other members.
 
-Scope: single maps and stacks; fisheye and triangle-mesh objects raise
-NotImplementedError.
+Fisheye (cfg.distortion) is baked at ray level, as in the reference: the
+static ray planes are built from the inverted lens model's NDC table
+(render/distortion.py), and under domain randomization the kernel reads
+that table where it reads the linear ramps otherwise. Kinds registered
+from OBJ files (render/objmesh.py) render as their largest triangles under
+``mesh_fidelity="triangles"`` (Moeller-Trumbore in model space, flat
+two-sided shading), else as their material boxes. Any frame with
+H*W % 128 == 0 renders; one block per env and pixel block needs no row
+tiling at the reference's native 640x480.
 
 Differences from the TPU kernel, none beyond rounding: the static RGB
 ground is shaded in float32 and quantized once (the TPU default carries
@@ -50,12 +57,17 @@ from dtown_torch.render.shading import (
     ASPHALT, EMPTY, FLOOR, GRASS, NOISE_AMP, WHITE, YELLOW,
 )
 from dtown_torch.randomization import variant_hash
+from dtown_torch.render.distortion import undistorted_ndc
 from dtown_torch.render.tile_shading import (
     INTERSECTION_KINDS, _noise_h16f, _select_word, _shade_pixels,
     _tile_masks,
 )
 
 LANE_N = 128  # pixel lane width of the [S, 128] frame layout
+
+# Triangles per OBJ-registered object on the fused path (largest first;
+# each costs about two box primitives in the kernel)
+KERNEL_TRI_BUDGET = 8
 
 
 def pack_tile_words(kind, ang):
@@ -82,8 +94,6 @@ def build_render_plan(cfg, maps):
     maps or of maps that differ in tile size."""
     if maps.is_stack:
         return _stack_plan(cfg, maps)
-    if cfg.mesh_fidelity == "triangles":
-        raise NotImplementedError("triangle-mesh objects are not ported yet")
     obj_mask = np.asarray(maps.obj_mask)
     kinds = np.asarray(maps.obj_kind)
     if not cfg.render_objects:
@@ -118,6 +128,7 @@ def build_render_plan(cfg, maps):
     pos = np.asarray(maps.obj_pos, np.float64)
     rot = np.asarray(maps.obj_y_rot, np.float64)
     scale = np.asarray(maps.obj_scale, np.float64)
+    fid_tris = cfg.mesh_fidelity == "triangles"
     objs = []
     for m in np.nonzero(obj_mask)[0]:
         k = int(kinds[m])
@@ -128,6 +139,18 @@ def build_render_plan(cfg, maps):
         lmy = light[1]
         lmz = light[2] * c_r - light[0] * s_r
         sc = float(scale[m])
+        kind_name = T.OBJ_KINDS[k]
+        if fid_tris and kind_name in meshlib.TRI_MESHES:
+            # an OBJ kind at triangle fidelity: its largest faces, static
+            # (even in an NPC slot, as in the reference)
+            objs.append(dict(
+                pos=tuple(float(x) for x in pos[m]),
+                s_r=s_r, c_r=c_r, inv_s=1.0 / max(sc, 1e-6), scale=sc,
+                l_model=(float(lmx), float(lmy), float(lmz)),
+                prims=_tri_prims(meshlib.TRI_MESHES[kind_name], cull_d),
+                npc_idx=None, wiggle=False, slot=int(m), map=None,
+            ))
+            continue
         prims = []
         for p in range(meshlib.P_MAX):
             if not tables["mask"][k, p]:
@@ -188,6 +211,36 @@ def build_render_plan(cfg, maps):
         objs=objs,
         cluster=2 if clustered else 0,
     )
+
+
+def _tri_prims(mesh, cull_d):
+    """Triangle prims of a registered mesh (tris, colours): the first
+    KERNEL_TRI_BUDGET of its area-sorted buffer, degenerate ones skipped,
+    each with v0, edges e1/e2, unit normal n and colour; LOD-exempt (cull
+    distance obj_cull_dist)."""
+    tris, cols = mesh
+    prims = []
+    for ti in range(min(KERNEL_TRI_BUDGET, len(tris))):
+        v0, v1, v2 = (np.asarray(v, np.float64) for v in tris[ti])
+        e1v, e2v = v1 - v0, v2 - v0
+        nrm = np.cross(e1v, e2v)
+        nn = float(np.linalg.norm(nrm))
+        if nn < 1e-12:
+            continue
+        nrm = nrm / nn
+        prims.append(dict(
+            is_box=False, is_tri=True,
+            v0=tuple(float(x) for x in v0),
+            e1=tuple(float(x) for x in e1v),
+            e2=tuple(float(x) for x in e2v),
+            n=tuple(float(x) for x in nrm),
+            color=tuple(float(x) for x in cols[ti]),
+            lamp=False,
+            center=tuple(float(x) for x in (v0 + v1 + v2) / 3),
+            param=(0.0, 0.0, 0.0),
+            culld=cull_d,
+        ))
+    return prims
 
 
 def _stack_plan(cfg, maps):
@@ -276,6 +329,12 @@ def _bound_radius(ob):
     position (model extents times the object scale)."""
     r = 0.0
     for pr in ob["prims"]:
+        if pr.get("is_tri"):
+            v0 = pr["v0"]
+            for e in ((0.0,) * 3, pr["e1"], pr["e2"]):
+                v = tuple(v0[i] + e[i] for i in range(3))
+                r = max(r, math.sqrt(sum(x * x for x in v)))
+            continue
         c, p = pr["center"], pr["param"]
         pr_r = (math.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
                 if pr["is_box"] else p[0])
@@ -305,20 +364,27 @@ def _npc_view_radius(plan):
     return out
 
 
-def _static_ray_planes(H, W, plan, grayscale=False):
+def _static_ray_planes(H, W, plan, fisheye=False, grayscale=False):
     """[5, S, 128] float32 static per-pixel ray planes [A, B, D, E, F]
-    (no fisheye, no domain randomization): the first five planes of the
-    reference's. Per env the ray is a yaw rotation of two planes: dx = c*A
-    + s*B, dz = c*B - s*A, dy = D; E = -1/D on ground lanes (0 on sky
-    lanes), F = the clamped 1/D of the box y-slab. With grayscale a sixth
-    plane carries the reference's baked sky luma; the RGB float path
-    computes the sky from D instead of the reference's packed plane."""
+    (no domain randomization): the first five planes of the reference's.
+    Per env the ray is a yaw rotation of two planes: dx = c*A + s*B,
+    dz = c*B - s*A, dy = D; E = -1/D on ground lanes (0 on sky lanes),
+    F = the clamped 1/D of the box y-slab. Fisheye builds them from the
+    inverted lens model's NDC table instead of the linear ramps. With
+    grayscale a sixth plane carries the reference's baked sky luma; the
+    RGB float path computes the sky from D instead of the reference's
+    packed plane."""
     S = H * W // LANE_N
-    p = np.arange(S * LANE_N, dtype=np.int64).reshape(S, LANE_N)
-    y = p // W
-    x = p - y * W
-    xn_b = ((x + 0.5) * (1.0 / W) - 0.5) * 2.0
-    yn_b = (0.5 - (y + 0.5) * (1.0 / H)) * 2.0
+    if fisheye:
+        xb, yb = undistorted_ndc(W, H)
+        xn_b = np.asarray(xb, np.float64).reshape(S, LANE_N)
+        yn_b = np.asarray(yb, np.float64).reshape(S, LANE_N)
+    else:
+        p = np.arange(S * LANE_N, dtype=np.int64).reshape(S, LANE_N)
+        y = p // W
+        x = p - y * W
+        xn_b = ((x + 0.5) * (1.0 / W) - 0.5) * 2.0
+        yn_b = (0.5 - (y + 0.5) * (1.0 / H)) * 2.0
     aspect = W / H
     xn = xn_b * (plan["tan_half"] * aspect)
     yn = yn_b * plan["tan_half"]
@@ -340,6 +406,25 @@ def _static_ray_planes(H, W, plan, grayscale=False):
     return np.stack([A, B, D, E, F, sky])
 
 
+def _ndc_table(H, W, fisheye):
+    """[2, H*W] float32 per-pixel NDC factors (xb, yb) that the domain-
+    randomized rays scale by the env's tan(fov/2): the inverted lens
+    model's table under fisheye, else the linear ramps
+    xb = ((x + .5) * (1/W) - .5) * 2, yb = (.5 - (y + .5) * (1/H)) * 2 in
+    float32, each operation rounded as the reference's kernel rounds it."""
+    if fisheye:
+        xb, yb = undistorted_ndc(W, H)
+        return np.stack([xb.reshape(-1), yb.reshape(-1)])
+    f = np.float32
+    p = np.arange(H * W, dtype=np.int64)
+    y = p // W
+    x = (p - y * W).astype(f)
+    y = y.astype(f)
+    xb = ((x + f(0.5)) * f(1.0 / W) - f(0.5)) * f(2.0)
+    yb = (f(0.5) - (y + f(0.5)) * f(1.0 / H)) * f(2.0)
+    return np.stack([xb, yb]).astype(f)
+
+
 def _lum(c3):
     """Luma of an RGB triple of Python floats (a double fold)."""
     return 0.299 * c3[0] + 0.587 * c3[1] + 0.114 * c3[2]
@@ -352,7 +437,7 @@ _SCENE_NAMES = (
     "hr", "hg", "hb", "ambient", "k_diff", "lwx", "lwy", "lwz", "dt",
     "inv_tl",
     # per-env rays under domain randomization
-    "aspect", "deg", "half_h", "inv_w", "inv_h",
+    "aspect", "deg", "half_h",
     # luma ground: base lumas by kind, marking terms, noise amplitudes by
     # kind, off-map ground (static shade folded in; scale 1 under DR)
     "l_empty", "l_road", "l_grass", "l_floor", "l_y", "l_w",
@@ -365,13 +450,17 @@ OBJ_F = 12
 (O_X, O_Y, O_Z, O_SR, O_CR, O_INVS, O_SC, O_LMX, O_LMY, O_LMZ,
  O_CULL2, O_RV) = range(12)
 OBJ_I = 8
-OI_P0, OI_NP, OI_BOX, OI_NPC, OI_OPT, OI_WIG, OI_PRED, OI_MAP = range(8)
-# per-prim floats (P_*) and ints (PI_*)
-PRIM_F = 13
+# OI_MODEL: the object has a box or a triangle (its rays go to model space)
+OI_P0, OI_NP, OI_MODEL, OI_NPC, OI_OPT, OI_WIG, OI_PRED, OI_MAP = range(8)
+# per-prim floats (P_*) and ints (PI_*). A triangle keeps v0 in P_C*, the
+# edge e1 in P_P*, the edge e2, its unit normal and the nominal light's
+# n . l_model in P_E2*, P_N* and P_NDL
+PRIM_F = 20
 (P_CX, P_CY, P_CZ, P_P0, P_P1, P_P2, P_CD2, P_CWX, P_CWY, P_CWZ, P_RW2,
- P_NDV, P_LUMA) = range(13)
+ P_NDV, P_LUMA, P_E2X, P_E2Y, P_E2Z, P_NX, P_NY, P_NZ, P_NDL) = range(20)
 PRIM_I = 4
-PI_BOX, PI_LAMP, PI_COLOR, PI_OWN = range(4)
+PI_TYPE, PI_LAMP, PI_COLOR, PI_OWN = range(4)
+SPHERE_T, BOX_T, TRI_T = 0, 1, 2   # PI_TYPE values
 
 B0 = 0.94  # texture variant 0's brightness
 AMP_GRASS, AMP_OTHER = 0.03, 0.015
@@ -428,8 +517,6 @@ def pack_plan(cfg, plan, device):
     Every value is the reference's Python-double constant fold, rounded
     once to float32. Returns a dict of tensors and ints."""
     H, W = cfg.camera_height, cfg.camera_width
-    if cfg.distortion:
-        raise NotImplementedError("fisheye distortion is not ported yet")
     if (H * W) % LANE_N:
         raise ValueError(f"H*W must be a multiple of {LANE_N}: {H}x{W}")
     gray = bool(cfg.grayscale)
@@ -451,8 +538,8 @@ def pack_plan(cfg, plan, device):
         ambient=amb, k_diff=1.0 - amb,
         lwx=plan["light"][0], lwy=plan["light"][1], lwz=plan["light"][2],
         dt=plan["dt"], inv_tl=1.0 / plan["tl_period"],
-        aspect=W / H, deg=math.pi / 180.0, half_h=H * 0.5, inv_w=1.0 / W,
-        inv_h=1.0 / H, **_luma_consts(plan, aa, dr),
+        aspect=W / H, deg=math.pi / 180.0, half_h=H * 0.5,
+        **_luma_consts(plan, aa, dr),
     )
     cull_w = math.sqrt(plan["cull2"])
     objs = plan["objs"]
@@ -474,7 +561,8 @@ def pack_plan(cfg, plan, device):
         of[i, O_RV] = view_r.get(i, 0.0)
         oi[i, OI_P0] = j
         oi[i, OI_NP] = len(ob["prims"])
-        oi[i, OI_BOX] = int(any(p["is_box"] for p in ob["prims"]))
+        oi[i, OI_MODEL] = int(any(p["is_box"] or p.get("is_tri")
+                                  for p in ob["prims"]))
         oi[i, OI_NPC] = -1 if ob["npc_idx"] is None else ob["npc_idx"]
         oi[i, OI_OPT] = (ob["opt_bit"] if dr and ob["opt_bit"] is not None
                          else -1)
@@ -488,7 +576,16 @@ def pack_plan(cfg, plan, device):
             pf[j, [P_CX, P_CY, P_CZ, P_P0, P_P1, P_P2]] = (
                 cx, cy, cz, p0, p1, p2)
             pf[j, P_CD2] = cd * cd
-            if not pr["is_box"]:
+            tri = bool(pr.get("is_tri"))
+            if tri:
+                n = pr["n"]
+                lm = ob["l_model"]
+                pf[j, [P_CX, P_CY, P_CZ]] = pr["v0"]
+                pf[j, [P_P0, P_P1, P_P2]] = pr["e1"]
+                pf[j, [P_E2X, P_E2Y, P_E2Z]] = pr["e2"]
+                pf[j, [P_NX, P_NY, P_NZ]] = n
+                pf[j, P_NDL] = n[0] * lm[0] + n[1] * lm[1] + n[2] * lm[2]
+            elif not pr["is_box"]:
                 rw = p0 * sc
                 pf[j, [P_CWX, P_CWY, P_CWZ]] = (
                     ox + sc * (cx * c_r - cz * s_r), oy + sc * cy,
@@ -496,7 +593,8 @@ def pack_plan(cfg, plan, device):
                 pf[j, P_RW2] = rw * rw
                 pf[j, P_NDV] = -1.0 / max(rw, 1e-9)
             pf[j, P_LUMA] = _lum(pr["color"])
-            pi[j, PI_BOX] = int(pr["is_box"])
+            pi[j, PI_TYPE] = (TRI_T if tri else BOX_T if pr["is_box"]
+                              else SPHERE_T)
             pi[j, PI_LAMP] = int(pr["lamp"])
             pi[j, PI_COLOR] = _packed(pr["color"])
             pi[j, PI_OWN] = int(cd < culld_o * 0.999)
@@ -510,8 +608,14 @@ def pack_plan(cfg, plan, device):
         + tuple(plan["horizon"]))
     dev = torch.device(device)
     n_npc = int(plan["n_npc"])
-    rays = _static_ray_planes(H, W, plan, grayscale=gray)
-    rays = rays.reshape(rays.shape[0], -1)
+    # the ray input: the static planes, or under domain randomization the
+    # NDC table that the per-env rays scale
+    fisheye = bool(cfg.distortion)
+    if dr:
+        rays = _ndc_table(H, W, fisheye)
+    else:
+        rays = _static_ray_planes(H, W, plan, fisheye, grayscale=gray)
+        rays = rays.reshape(rays.shape[0], -1)
     words = np.asarray(plan["words"], np.int32)
     multi = plan["multi"]
     return dict(
@@ -527,6 +631,7 @@ def pack_plan(cfg, plan, device):
         n_objs=len(objs), Hg=plan["Hg"], Wg=plan["Wg"],
         aa=aa, any_x=any(k in present for k in INTERSECTION_KINDS),
         no_clamp=no_clamp,
+        tri=any(p.get("is_tri") for ob in objs for p in ob["prims"]),
         n_maps=multi["n_maps"] if multi else 1,
         npw=multi["npw"] if multi else 0,
     )
@@ -599,14 +704,10 @@ def render_frames_reference(blob, pk):
     eye2 = pz_s + camf_e * (-s_a)
 
     if dr:
-        # per-pixel camera basis, normalization and ground divide
-        p = torch.arange(P, dtype=torch.int64, device=dev)
-        y = p // W
-        x = p - y * W
-        xn_b = ((x.to(f32) + 0.5) * scene["inv_w"] - 0.5) * 2.0
-        yn_b = (0.5 - (y.to(f32) + 0.5) * scene["inv_h"]) * 2.0
-        xn = xn_b[None, :] * tanx_e                  # [B, P]
-        yn = yn_b[None, :] * tany_e
+        # per-pixel camera basis from the NDC table, normalization and
+        # ground divide
+        xn = rays[0][None, :] * tanx_e               # [B, P]
+        yn = rays[1][None, :] * tany_e
         fwd_x, fwd_y, fwd_z = cp_e * c_a, -sp_e, -cp_e * s_a
         up_x, up_y, up_z = sp_e * c_a, cp_e, -sp_e * s_a
         dx = fwd_x + xn * s_a + yn * up_x
@@ -698,7 +799,7 @@ def render_frames_reference(blob, pk):
         pf, pi = pk["pf"].cpu(), pk["pi"].cpu().tolist()
         for o in range(pk["n_objs"]):
             ov = of[o].to(dev)                       # 0-d f32 scalars
-            p0_, n_p, has_box, npc, opt, wig, pred, omap = oi[o]
+            p0_, n_p, model, npc, opt, wig, pred, omap = oi[o]
             if npc >= 0:
                 # moving NPC: pose from the blob's NPC rows
                 nbase = sk.F_NPC_BASE + sk.NPC_ROWS * npc
@@ -735,7 +836,8 @@ def render_frames_reference(blob, pk):
             act = dist2 < ov[O_CULL2]
             if obj_on is not None:
                 act = act & obj_on
-            if has_box:
+            if model:
+                # a box or triangle object: the rays in model space
                 ex = (eye0 - ox) * ov[O_INVS]
                 ey = (eye1 - oy) * ov[O_INVS]
                 ez = (eye2 - oz) * ov[O_INVS]
@@ -755,14 +857,45 @@ def render_frames_reference(blob, pk):
                 wz = where(dmz >= 0.0, lm[2], -lm[2])
             for j in range(p0_, p0_ + n_p):
                 pv = pf[j].to(dev)
-                is_box, lamp, color, own = pi[j]
+                ptype, lamp, color, own = pi[j]
                 if own:
                     gate = dist2 < pv[P_CD2]
                     if obj_on is not None:
                         gate = gate & obj_on
                 else:
                     gate = act
-                if is_box:
+                if ptype == TRI_T:
+                    # Moeller-Trumbore in model space: the per-env tvec and
+                    # qvec against the baked v0, e1, e2
+                    v0x, v0y, v0z = pv[P_CX], pv[P_CY], pv[P_CZ]
+                    e1x, e1y, e1z = pv[P_P0], pv[P_P1], pv[P_P2]
+                    e2x, e2y, e2z = pv[P_E2X], pv[P_E2Y], pv[P_E2Z]
+                    pvx = dy * e2z - dmz * e2y
+                    pvy = dmz * e2x - dmx * e2z
+                    pvz = dmx * e2y - dy * e2x
+                    det = e1x * pvx + e1y * pvy + e1z * pvz
+                    ok_det = torch.abs(det) > 1e-12
+                    inv_det = (where(ok_det, 1.0, 0.0)
+                               / where(ok_det, det, 1.0))
+                    tvx = emx - v0x
+                    tvy = ey - v0y
+                    tvz = emz - v0z
+                    u_b = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+                    qvx = tvy * e1z - tvz * e1y
+                    qvy = tvz * e1x - tvx * e1z
+                    qvz = tvx * e1y - tvy * e1x
+                    v_b = (dmx * qvx + dy * qvy + dmz * qvz) * inv_det
+                    t_m = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+                    ok_p = ((u_b >= 0.0) & (v_b >= 0.0)
+                            & (u_b + v_b <= 1.0) & (t_m > 1e-4))
+                    t_w = t_m * ov[O_SC]
+                    # flat two-sided shading
+                    nx_, ny_, nz_ = pv[P_NX], pv[P_NY], pv[P_NZ]
+                    ndl = (nx_ * lm[0] + ny_ * lm[1] + nz_ * lm[2] if dr
+                           else pv[P_NDL])
+                    nd = nx_ * dmx + ny_ * dy + nz_ * dmz
+                    dv = where(nd > 0.0, ndl, -ndl)
+                elif ptype == BOX_T:
                     ocx = emx - pv[P_CX]
                     ocy = ey - pv[P_CY]
                     ocz = emz - pv[P_CZ]
@@ -837,7 +970,7 @@ def _lib():
     lib = _build.load("blob_render")
     fn = lib.dtown_blob_render
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 18
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 19
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -877,7 +1010,7 @@ def render_frames_from_blob(blob, pk):
              pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
              int(pk["no_clamp"]), LAMP_GREEN, LAMP_RED, int(pk["dr"]),
              int(pk["gray"]), int(pk["n_npc"] > 0), pk["drb"],
-             pk["n_maps"], pk["npw"], stream)
+             pk["n_maps"], pk["npw"], int(pk["tri"]), stream)
     if err != 0:
         raise RuntimeError(f"blob render kernel launch failed: CUDA error "
                            f"{err}")

@@ -100,6 +100,12 @@ for _name, _color in _SIGN_FACE_COLORS.items():
     ]
 
 
+# kinds registered from OBJ files (objmesh.register_custom_object):
+# kind -> (tris [T, 3, 3] f32 in model space, colours [T, 3] f32), ray-cast
+# by the blob render under mesh_fidelity="triangles"
+TRI_MESHES = {}
+
+
 @functools.lru_cache(maxsize=1)
 def prim_tables():
     """Static arrays indexed by object-kind id: type [K, P] int32,

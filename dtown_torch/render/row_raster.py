@@ -17,6 +17,12 @@ per int32 word) and the object data, in one of two forms:
   (``prepare_object_blocks``). Launched through ``row_render``, plain
   version ``render_frames_rows_reference``.
 
+Both kernels read the pixel's NDC ray factors from a table
+(``_ndc_table``): the linear ramps, or under fisheye (cfg.distortion) the
+inverted lens model's table, as the reference's ``_ndc_planes``. The
+reference ignores ``mesh_fidelity`` here: kinds registered from OBJ files
+render as their material boxes, on both sides.
+
 The dispatcher ``render_frames_rows`` keeps the reference's branch
 choice, including its quirk: with ``render_objects=False`` the reference
 skips the static scene and takes K4, whose object rows ignore the flag,
@@ -36,11 +42,11 @@ import numpy as np
 import torch
 
 from dtown_torch import types as T
-from dtown_torch.geometry import div, get_dir_vec, get_right_vec, norm3, \
-    sincos
+from dtown_torch.geometry import get_dir_vec, get_right_vec, norm3, sincos
 from dtown_torch.objects import render_angles
 from dtown_torch.render import lod as lodlib
 from dtown_torch.render import meshes as meshlib
+from dtown_torch.render.distortion import undistorted_ndc
 from dtown_torch.render.tile_shading import INTERSECTION_KINDS, _shade_pixels
 
 LANE_N = 128  # pixel lane width of the [S, 128] frame layout
@@ -264,13 +270,30 @@ def pack_static_scene(scene):
     return sof, soi, spf, spi
 
 
+def _ndc_table(H, W, fisheye):
+    """[2, H*W] float32 NDC ray factors (xb, yb) that K3/K4 scale by the
+    env's tan(fov/2): the inverted lens model's table under fisheye, else
+    the reference kernels' ramps ((x + .5) / W - .5) * 2 and
+    (.5 - (y + .5) / H) * 2, each operation rounded to float32."""
+    if fisheye:
+        xb, yb = undistorted_ndc(W, H)
+        return np.stack([xb.reshape(-1), yb.reshape(-1)])
+    f = np.float32
+    p = np.arange(H * W, dtype=np.int64)
+    y = p // W
+    x = (p - y * W).astype(f)
+    y = y.astype(f)
+    xb = ((x + f(0.5)) / f(W) - f(0.5)) * f(2.0)
+    yb = (f(0.5) - (y + f(0.5)) / f(H)) * f(2.0)
+    return np.stack([xb, yb]).astype(f)
+
+
 def pack_row_scene(cfg, maps):
     """Everything the row-fed render needs that does not change per step,
-    on the map's device (dict): frame and grid sizes, the branch (K3 when
-    the static scene builds), K3's scene tables or K4's prim matrix, and
-    the per-slot cull distances. The options not ported (multimaps,
-    fisheye, triangles) are refused before, by env.check_scope and
-    env.check_row_render_scope."""
+    on the map's device (dict): frame and grid sizes, the NDC table, the
+    branch (K3 when the static scene builds), K3's scene tables or K4's
+    prim matrix, and the per-slot cull distances. Multimaps are refused
+    before, by env.check_single_map."""
     host = maps.numpy()
     dev = maps.obj_pos.device
     H, W = cfg.camera_height, cfg.camera_width
@@ -289,6 +312,7 @@ def pack_row_scene(cfg, maps):
         aa=bool(cfg.marking_aa),
         any_x=any(k in present for k in INTERSECTION_KINDS),
         ts_inv=float(np.float32(1.0) / np.float32(host.tile_size)),
+        ndc=t(_ndc_table(H, W, bool(cfg.distortion))),
         static=scene is not None, slot_cull=t(slot_cull.astype(np.float32)),
     )
     if scene is not None:
@@ -326,18 +350,11 @@ def _safe_inv(dm):
 def _ground(cam, words, pk):
     """Per-pixel ray, ground hit, tile shading and sky of every env (the
     part K3 and K4 share). cam [B, CAM_F], words int32 [B, n_words]."""
-    H, W = pk["H"], pk["W"]
-    dev = cam.device
-    f32 = torch.float32
+    H = pk["H"]
     where = torch.where
     c = lambda i: cam[:, i:i + 1]                   # [B, 1]
-    p = torch.arange(H * W, dtype=torch.int32, device=dev)
-    y = torch.div(p, W, rounding_mode="floor")
-    x = p - y * W
-    xr = (div(x.to(f32) + 0.5, float(W)) - 0.5) * 2.0
-    yr = (0.5 - div(y.to(f32) + 0.5, float(H))) * 2.0
-    xn = xr[None] * c(C_TANX)                       # [B, P]
-    yn = yr[None] * c(C_TANY)
+    xn = pk["ndc"][0][None] * c(C_TANX)             # [B, P]
+    yn = pk["ndc"][1][None] * c(C_TANY)
     dx = c(C_FWD) + xn * c(C_RIGHT) + yn * c(C_UP)
     dy = c(C_FWD + 1) + xn * c(C_RIGHT + 1) + yn * c(C_UP + 1)
     dz = c(C_FWD + 2) + xn * c(C_RIGHT + 2) + yn * c(C_UP + 2)
@@ -592,10 +609,10 @@ def row_render_static(cam, words, flags, pk):
     B = cam.shape[0]
     out = torch.empty((B, 3, pk["H"] * pk["W"] // LANE_N, LANE_N),
                       dtype=torch.uint8, device=cam.device)
-    args = [t.contiguous() for t in (cam, words, flags)]
-    fn = _fn("dtown_row_render_static", 8, 9)
-    err = fn(*(t.data_ptr() for t in args),
-             pk["sof"].data_ptr(), pk["soi"].data_ptr(),
+    cam, words, flags = (t.contiguous() for t in (cam, words, flags))
+    fn = _fn("dtown_row_render_static", 9, 9)
+    err = fn(cam.data_ptr(), words.data_ptr(), pk["ndc"].data_ptr(),
+             flags.data_ptr(), pk["sof"].data_ptr(), pk["soi"].data_ptr(),
              pk["spf"].data_ptr(), pk["spi"].data_ptr(), out.data_ptr(),
              B, *_dims(pk), pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
              torch.cuda.current_stream(cam.device).cuda_stream)
@@ -622,9 +639,10 @@ def row_render(cam, words, obj, prim, pk):
     B = cam.shape[0]
     out = torch.empty((B, 3, pk["H"] * pk["W"] // LANE_N, LANE_N),
                       dtype=torch.uint8, device=cam.device)
-    args = [t.contiguous() for t in (cam, words, obj, prim)]
-    fn = _fn("dtown_row_render", 5, 9)
-    err = fn(*(t.data_ptr() for t in args), out.data_ptr(),
+    cam, words, obj, prim = (t.contiguous() for t in (cam, words, obj, prim))
+    fn = _fn("dtown_row_render", 6, 9)
+    err = fn(cam.data_ptr(), words.data_ptr(), pk["ndc"].data_ptr(),
+             obj.data_ptr(), prim.data_ptr(), out.data_ptr(),
              B, *_dims(pk), Kvis, int(pk["aa"]), int(pk["any_x"]),
              torch.cuda.current_stream(cam.device).cuda_stream)
     if err != 0:

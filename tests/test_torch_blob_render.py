@@ -157,22 +157,30 @@ def test_tile_shading_helpers_match_reference():
 
 
 def test_render_scope_raises():
-    """What the blob render does not take yet: triangle meshes (plan, on a
-    stack too), fisheye (packing). Moving NPCs, domain randomization,
-    grayscale and stacks of maps pack."""
+    """What the blob render refuses: a scene past the plan's budget gives
+    None (the reference's planless fallback). Triangle fidelity (on a map
+    without OBJ kinds the plan is unchanged, on a stack too), fisheye,
+    moving NPCs, domain randomization, grayscale and stacks of maps pack."""
     maps = load_map("loop_obstacles")
-    with pytest.raises(NotImplementedError, match="triangle"):
-        br.build_render_plan(EnvConfig(mesh_fidelity="triangles"), maps)
+    tri = EnvConfig(mesh_fidelity="triangles")
+    assert br.build_render_plan(tri, maps) == br.build_render_plan(
+        EnvConfig(), maps)
     stacked = stack_maps(["loop_obstacles", "small_loop"])
-    with pytest.raises(NotImplementedError, match="triangle"):
-        br.build_render_plan(EnvConfig(mesh_fidelity="triangles"), stacked)
+    assert br.build_render_plan(tri, stacked) is not None
     pk = br.pack_plan(EnvConfig(), br.build_render_plan(EnvConfig(),
                                                         stacked), "cpu")
     assert pk["n_maps"] == 2 and pk["npw"] == 7
     plan = br.build_render_plan(EnvConfig(), maps)
-    with pytest.raises(NotImplementedError, match="fisheye"):
-        br.pack_plan(EnvConfig(distortion=True), plan, "cpu")
+    flat = br.pack_plan(EnvConfig(camera_width=32, camera_height=32), plan,
+                        "cpu")
+    fish = br.pack_plan(EnvConfig(camera_width=32, camera_height=32,
+                                  distortion=True), plan, "cpu")
+    assert fish["rays"].shape == flat["rays"].shape == (5, 32 * 32)
+    assert not torch.equal(fish["rays"], flat["rays"])
     cfg = EnvConfig(domain_rand=True, grayscale=True)
     pk = br.pack_plan(cfg, br.build_render_plan(
         cfg, load_map("loop_pedestrians")), "cpu")
     assert pk["dr"] and pk["C"] == 1 and pk["n_npc"] == 3
+    assert pk["rays"].shape == (2, 64 * 64)      # the NDC table under DR
+    assert br.build_render_plan(EnvConfig(), stack_maps(["udem1"] * 4)) \
+        is None

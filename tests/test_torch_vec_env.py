@@ -1,7 +1,7 @@
 """dtown_torch's vectorized API (``make_vec`` / ``step_batch``) on the
 CPU: the entry point's device rule, frames and state vectors of the
-right shape, seeded determinism, and NotImplementedError for the options
-not ported yet. The numbers are held against the JAX package in
+right shape, seeded determinism, fisheye frames, and NotImplementedError
+for the options not ported yet. The numbers are held against the JAX package in
 test_torch_env_step.py and test_torch_row_render.py."""
 import pytest
 import torch
@@ -98,15 +98,48 @@ def test_same_seed_same_states():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(renderer="xla"), "renderer='pallas'"),
-    (dict(distortion=True), "fisheye"),
     (dict(spawn_mode="rejection"), "rejection"),
     (dict(start_pose=(1.0, 1.0, 0.0)), "start_pose"),
     (dict(user_tile_start=(1, 1)), "user_tile_start"),
-    (dict(mesh_fidelity="triangles"), "triangle"),
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _vec(**kw)
+
+
+@pytest.mark.parametrize("map_name,static", [("loop_obstacles", True),
+                                             ("bigtown", False)])
+def test_fisheye_step_path(map_name, static):
+    """distortion=True on the step path: K3 (loop_obstacles) and K4
+    (bigtown) render with the fisheye NDC table, frames of the same shape
+    that differ from the rectilinear ones; the physics is the same."""
+    kw = dict(camera_width=32, camera_height=32)
+    outs = []
+    for fish in (False, True):
+        _, _, v_reset, v_step = _vec(map_name, distortion=fish, **kw)
+        assert v_step.pack["static"] == static
+        states, out = v_step(v_reset(torch.Generator().manual_seed(5)),
+                             torch.tensor([[0.3, 0.1]]).repeat(8, 1))
+        assert out.obs.shape == (8, 32, 32, 3) and out.obs.dtype == \
+            torch.uint8
+        assert float(out.obs.float().std()) > 5.0
+        outs.append((states, out))
+    (s0, o0), (s1, o1) = outs
+    assert torch.equal(s0.pos, s1.pos) and torch.equal(o0.reward, o1.reward)
+    assert (o0.obs != o1.obs).float().mean() > 0.1
+
+
+def test_triangle_fidelity_step_path_uses_boxes():
+    """mesh_fidelity is the fused rollout's option: the step path renders
+    as with the default (the reference's row-fed path never reads it)."""
+    kw = dict(camera_width=32, camera_height=32)
+    obs = []
+    for fid in ("prims", "triangles"):
+        _, _, v_reset, v_step = _vec(mesh_fidelity=fid, **kw)
+        _, out = v_step(v_reset(torch.Generator().manual_seed(6)),
+                        torch.full((8, 2), 0.3))
+        obs.append(out.obs)
+    assert torch.equal(obs[0], obs[1])
 
 
 def test_unported_multimap_raises():

@@ -13,7 +13,9 @@ float32/bfloat16 throughput probe, and prints what it measured.
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi);
   2. build the four kernel sources from dtown_torch/csrc (one nvcc each,
-     in parallel), printing registers and spill of every specialisation;
+     in parallel), printing registers and spill of every specialisation
+     and, per source, the kernel count, register range and the kernels
+     that spill;
   3. the fused RGB rollout on loop_obstacles, 64 envs 32x32, 5 steps, on
      the card vs on the CPU from the same blob;
   4. the fused rollout in each configuration, each with its own launch
@@ -23,9 +25,11 @@ Phases (any failure exits non-zero and prints no result):
      64x64 RGB; (c) bigtown_pedestrians with domain randomization and
      grayscale, 64x64; (d) BASELINE config 2, small_loop grayscale 64x64,
      256 envs; (e) state observations on loop_pedestrians (the state
-     kernel alone); stacks of maps (stack_maps, env b on member
-     b % n_maps), 64x64 RGB: stack3, BASELINE config 5's maps
-     zigzag_dists/4way/udem1 at its 8192 envs; stack6, the 6-map
+     kernel alone); npc10_state, state observations on the stack
+     loop_pedestrians/town_dyn_duckiebots/metro (10 NPCs, whose state the
+     state kernel keeps in the blob rows); stacks of maps (stack_maps,
+     env b on member b % n_maps), 64x64 RGB: stack3, BASELINE config 5's
+     maps zigzag_dists/4way/udem1 at its 8192 envs; stack6, the 6-map
      curriculum stack of scripts/bench_all.sh; stack_npc_dr,
      town_dyn_duckiebots + udem1 with domain randomization (map-gated
      NPCs of both kinds, optional objects); nav_stack, the Nav task
@@ -49,8 +53,10 @@ Phases (any failure exits non-zero and prints no result):
      its output, traces 32 steps with torch.profiler (device ms per
      launch, idle share), times the plain versions on the timed run's
      last blob, holds both kernels against those outputs (same bars) and
-     computes the bounds from that run's inputs (frames of more than 2^25
-     pixels in all go through the plain version in slices of envs);
+     computes the bounds from that run's inputs (the blob render's by its
+     own culls, blob_raster.kept and sphere_pass, and again without the
+     view cull; frames of more than 2^25 pixels in all go through the plain
+     version in slices of envs);
   5. the vector env on the card vs the CPU at 64 envs 32x32 from the
      same states, 5 steps without auto-reset, on loop_obstacles (K3),
      town_dyn_duckiebots (K4, scripted bots), udem1 with domain
@@ -72,7 +78,9 @@ Phases (any failure exits non-zero and prints no result):
      and bfloat16 at the reference probe's [4096, 32, 128], 256 steps:
      the probe's loop (its launches counted), the kernel vs its plain
      version on seeded inputs (max |diff| 0), the device time per launch
-     from a trace, the rate and the bound.
+     from a trace of 64 launches of the probe's loop body (CUDA events,
+     said so, and the trace's keys printed, if the trace misses it), the
+     rate and the bound.
 Needs CUDA; imports nothing of JAX.
 """
 import json
@@ -109,16 +117,23 @@ K1_OPS_RESET_GOAL = K1_OPS_HASH + 8          # the goal redraw
 K2_OPS_PIXEL = 150        # camera, ground hit, tile shading, sky, output
 K2_OPS_DR_PIXEL = 50      # DR: NDC table, ray basis, 1/sqrt, ground divide,
                           # variant hash
-K2_OPS_BOX_PIXEL = 20     # a kept box or triangle object's ray in model
-                          # space, inverses
-K2_OPS_BOX = 40           # one box primitive (slabs, shading, fold)
-K2_OPS_SPHERE = 32        # one sphere primitive
-K2_OPS_TRI = 84           # one triangle: 13 loads, Moeller-Trumbore (pvec,
-                          # det, 1/det, tvec, u, qvec, v, t), tests, flat
+K2_OPS_BOUND = 10         # a kept object's bounding-sphere test (record
+                          # load, b = oc . d, compares)
+K2_OPS_BOX_PIXEL = 20     # a box or triangle object's ray in model space,
+                          # inverses, where its bounding sphere is met
+K2_OPS_BOX = 40           # one box primitive (2 record loads, slabs from
+                          # the per-env offsets, shading, fold)
+K2_OPS_SPHERE = 26        # one sphere primitive (2 loads, b, disc, root,
+                          # light term, fold)
+K2_OPS_TRI = 62           # one triangle: 5 loads, Moeller-Trumbore's per-ray
+                          # half (pvec, det, 1/det, u, v, t), tests, flat
                           # two-sided shading, fold
-# once per env (the kernel repeats them in every thread of the env's block)
+# once per env (the kernel's per-block prologue; the bound counts it once
+# per env, not once per block)
 K2_OPS_OBJECT = 8         # distance, optional-bit and half-plane culls
 K2_OPS_BOX_ENV = 12       # a kept box object's eye in model space
+K2_OPS_PRIM_ENV = 12      # a kept primitive's per-env record (slab offsets,
+                          # sphere terms, tvec/qvec), LOD cull
 K2_OPS_NPC_OBJECT = 60    # an NPC's pose, wiggle, sincos, light rotation
 K2_OPS_MAP = 2            # a stack's map test of one object
 
@@ -203,6 +218,20 @@ def ptxas_report(log):
     return out
 
 
+def spill_summary(lines):
+    """Kernel count, register range and the specialisations that spill,
+    of one source's ptxas_report lines."""
+    import re
+
+    regs = [int(m.group(1)) for m in (re.search(r": (\d+) registers", x)
+                                      for x in lines) if m]
+    spills = [x.split(":")[0] for x in lines
+              if re.search(r"[1-9]\d* bytes spill", x)]
+    return (f"{len(lines)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, spilling: "
+            f"{', '.join(spills) if spills else 'none'}")
+
+
 def cuda_ms(fn, n):
     """Mean ms per call of fn over n calls, CUDA events, after a warm-up
     call. Returns (ms, the warm-up call's result)."""
@@ -220,10 +249,10 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n, first
 
 
-def profile_window(window, kernels):
+def profile_window(window, kernels, keys=False):
     """torch.profiler over one call of window(). Returns (device ms per
     launch of each named kernel found, device ms of all kernels, window
-    ms)."""
+    ms), and with keys the names of the trace's device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,16 +264,19 @@ def profile_window(window, kernels):
         window()
         end.record()
         torch.cuda.synchronize()
-    per, busy = {}, 0.0
+    per, busy, names = {}, 0.0, []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host events; kernels are the device-side entries
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
         busy += t
+        names.append(ev.key)
         for k in kernels:
             if k in ev.key and ev.count:
                 per[k] = t / ev.count
+    if keys:
+        return per, busy, start.elapsed_time(end), names
     return per, busy, start.elapsed_time(end)
 
 
@@ -474,62 +506,52 @@ def row_kernel_check(run, dev):
 
 def k2_ops(blob, pk, P):
     """Operations the render needs on this blob: per pixel the ground pass
-    (and, under domain randomization, the per-pixel ray and variant hash)
-    and the ray tests of the objects and primitives its env's culls keep;
-    once per env each object's culls, a kept box's eye in model space, and
-    a moving NPC's pose and light rotation (culled or not). On a stack an
-    env pays one map test per object and the rest only for its own map's
-    objects. The kernel repeats the per-env work in every thread; the
-    bound counts it once."""
+    (and, under domain randomization, the per-pixel ray and variant hash),
+    the bounding-sphere test of each object its env keeps, and the ray
+    tests of a kept object's kept primitives on the pixels whose rays meet
+    its bounding sphere; by the kernel's own culls (blob_raster.kept: the
+    map, distance, optional-bit, NPC half-plane and, when pk["view"], view
+    culls, then the LOD culls; blob_raster.sphere_pass, counted on the
+    card in slices of envs). Once per env each object's culls, a kept box's
+    eye in model space, a kept primitive's per-env record, and a moving
+    NPC's pose and light rotation (culled or not). On a stack an env pays
+    one map test per object and the rest only for its own map's
+    objects."""
     import torch
-    from dtown_torch.geometry import sincos
     from dtown_torch.ops import state_kernel as sk
     from dtown_torch.render import blob_raster as br
 
-    of, oi = pk["of"].cpu().double(), pk["oi"].cpu()
-    pf, pi = pk["pf"].cpu().double(), pk["pi"].cpu()
+    oi, pi = pk["oi"].cpu(), pk["pi"].cpu()
     b = blob.cpu()
-    s, c = sincos(b[sk.F_ANGLE])
-    s, c = s.double(), c.double()
-    cam = (b[pk["drb"] + sk.DR_CAMF].double() if pk["dr"]
-           else float(pk["scene"][0]))
-    eye0 = b[sk.F_POS_X].double() + cam * c
-    eye2 = b[sk.F_POS_Z].double() - cam * s
-    vis = b[pk["drb"] + sk.DR_OBJVIS].to(torch.int64) if pk["dr"] else None
-    per_pixel = torch.full_like(eye0, float(
-        K2_OPS_PIXEL + (K2_OPS_DR_PIXEL if pk["dr"] else 0)))
-    per_env = torch.zeros_like(eye0)
+    keep_o, keep_p = (m.double() for m in br.kept(b, pk))
+    B, n_o = b.shape[1], pk["n_objs"]
+    hits = torch.zeros((B, n_o), dtype=torch.float64)
+    n = max(1, (1 << 24) // (P * max(n_o, 1)))
+    for i in range(0, B, n):
+        hits[i:i + n] = br.sphere_pass(
+            blob[:, i:i + n].contiguous(), pk).sum(2).double().cpu()
+    per_env = torch.full((B,), float(
+        K2_OPS_PIXEL + (K2_OPS_DR_PIXEL if pk["dr"] else 0)) * P,
+        dtype=torch.float64)
     stack = pk["n_maps"] > 1
     mid = b[sk.F_MAPID].to(torch.int64)
-    for o in range(pk["n_objs"]):
-        npc, opt = int(oi[o, br.OI_NPC]), int(oi[o, br.OI_OPT])
+    cost_of = {br.SPHERE_T: K2_OPS_SPHERE, br.BOX_T: K2_OPS_BOX,
+               br.TRI_T: K2_OPS_TRI}
+    for o in range(n_o):
         own = (mid == int(oi[o, br.OI_MAP])).double() if stack else 1.0
         if stack:
             per_env += K2_OPS_MAP
-        if npc >= 0:
-            base = sk.F_NPC_BASE + sk.NPC_ROWS * npc
-            ox, oz = b[base].double(), b[base + 1].double()
+        if int(oi[o, br.OI_NPC]) >= 0:
             per_env += own * K2_OPS_NPC_OBJECT
-        else:
-            ox, oz = of[o, br.O_X], of[o, br.O_Z]
-        d2 = (ox - eye0) ** 2 + (oz - eye2) ** 2
-        act = (d2 < of[o, br.O_CULL2]) & (own > 0.5 if stack else True)
-        if opt >= 0:
-            act = act & (((vis >> opt) & 1) > 0)
-        if int(oi[o, br.OI_PRED]):
-            act = act & ((ox - eye0) * c - (oz - eye2) * s
-                         > -of[o, br.O_RV])
-        per_env += own * K2_OPS_OBJECT
+        per_env += own * K2_OPS_OBJECT + keep_o[:, o] * K2_OPS_BOUND * P
         if oi[o, br.OI_MODEL]:
-            per_env += act.double() * K2_OPS_BOX_ENV
-            per_pixel += act.double() * K2_OPS_BOX_PIXEL
+            per_env += keep_o[:, o] * K2_OPS_BOX_ENV
+            per_env += hits[:, o] * K2_OPS_BOX_PIXEL
         p0, n_p = int(oi[o, br.OI_P0]), int(oi[o, br.OI_NP])
-        cost_of = {br.SPHERE_T: K2_OPS_SPHERE, br.BOX_T: K2_OPS_BOX,
-                   br.TRI_T: K2_OPS_TRI}
         for j in range(p0, p0 + n_p):
-            gate = act & (d2 < pf[j, br.P_CD2]) if pi[j, br.PI_OWN] else act
-            per_pixel += gate.double() * cost_of[int(pi[j, br.PI_TYPE])]
-    return float(per_pixel.sum()) * P + float(per_env.sum())
+            per_env += keep_p[:, j] * (K2_OPS_PRIM_ENV + hits[:, o]
+                                       * cost_of[int(pi[j, br.PI_TYPE])])
+    return float(per_env.sum())
 
 
 def k1_ops(blob_out, st):
@@ -826,6 +848,10 @@ def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
                                  f"its plain version on the timed blob")
         k2_err = max(k2_err, k2_last)
         k2_b = bound(k2_bytes(pk, B, P), k2_ops(blob, pk, P))
+        # the same bound without the view cull (what the pixels need when
+        # no object behind the camera is skipped)
+        k2_nv = bound(k2_bytes(pk, B, P), k2_ops(blob, dict(pk, view=False),
+                                                 P))
         rows.append(dict(name="blob_render" + sfx, route="cuda",
                          source="dtown_torch/csrc/blob_render.cu",
                          replaces="dtown/render/blob_raster.py:574",
@@ -835,7 +861,8 @@ def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
                          bound_by=k2_b[1], library_ms=None))
         print(f"{tag}: blob render {dev_ms['blob_render_kernel']:.5f} "
               f"ms/launch (plain {k2_plain:.4f} ms), bound {k2_b[0]:.6f} "
-              f"ms by {k2_b[1]}")
+              f"ms by {k2_b[1]} (view cull {'on' if pk['view'] else 'off'}"
+              f"; without it {k2_nv[0]:.6f} ms)")
     torch.cuda.empty_cache()
     return rows
 
@@ -937,14 +964,20 @@ def probe_phase(dev, smi):
             lambda: probes.fma_chain_reference(x, dtype), 2)
         err = float((y_k - y_r).abs().max())
         def window(x=x, dtype=dtype):
-            for _ in range(8):      # the probe's loop body
+            # the probe's loop body, long enough (~15-20 ms) that the
+            # tracer is recording well before the last launches: an
+            # 8-launch window (~2.5 ms) came back empty in some runs
+            for _ in range(64):
                 x = probes.fma_chain(x, dtype) * (1.0 - 1e-7)
 
-        dev_ms, _, _ = profile_window(window, [kname])
+        torch.cuda.synchronize()
+        dev_ms, _, _, keys = profile_window(window, [kname], keys=True)
         how = "trace"
         if kname not in dev_ms:
-            # the trace held no device time for it: CUDA events around 20
-            # back-to-back launches (the card runs nothing else)
+            # the trace held no device time for it: say what it held, then
+            # CUDA events around 20 back-to-back launches (the card runs
+            # nothing else)
+            print(f"probe {tag}: the trace's device keys: {keys}")
             dev_ms[kname] = cuda_ms(lambda: probes.fma_chain(x, dtype),
                                     20)[0]
             how = "CUDA events"
@@ -994,8 +1027,11 @@ def main():
     logs = _build.build_all()
     print(f"build: {time.time() - t0:.1f} s")
     for name, log in logs.items():
-        for line in ptxas_report(log):
+        lines = ptxas_report(log)
+        for line in lines:
             print(f"  {name}: {line}")
+        if log:
+            print(f"  {name}: {spill_summary(lines)}")
 
     # ---- fused rollout: card vs CPU on a small input -----------------------------
     maps = dtown_torch.load_map("loop_obstacles")
@@ -1034,6 +1070,10 @@ def main():
             ("baseline2", "small_loop", 256, 64, 64, dict(grayscale=True)),
             ("state", "loop_pedestrians", 4096, 64, 256,
              dict(obs_type="state")),
+            # 3 + 4 + 3 = 10 NPCs: the state kernel keeps their state in
+            # the blob rows
+            ("npc10_state", ["loop_pedestrians", "town_dyn_duckiebots",
+                             "metro"], 4096, 64, 256, dict(obs_type="state")),
             ("stack3", STACK3, 8192, 64, 128, {}),
             ("stack6", STACK6, 4096, 64, 64, {}),
             ("stack_npc_dr", ["town_dyn_duckiebots", "udem1"], 4096, 64,

@@ -27,18 +27,23 @@
 //    (18 KB for loop_obstacles' curve table) and stay in L1/L2.
 //  * 128 threads a block, so 4096 envs fill 32 blocks (the TPU kernel's
 //    512-env programs would leave most of the 132 SMs idle).
-//  * NPC state lives in small per-thread arrays (MAX_NPC = 8); the NPC
-//    descriptors come from a float table [8, n_npc] and each object column
-//    carries its NPC index and optional-object bit (colmap), so one binary
-//    serves every map. The agent and the duckiebots share one lane_query.
+//  * NPC state lives in small per-thread arrays for up to MAX_NPC = 8
+//    NPCs. Past that (a stack concatenates its members' NPCs, so any count
+//    can occur) the state machines read and write the NPC rows of the
+//    output blob in place instead, with the same reads and writes in the
+//    same order, so the rows come out the same bits; a third template flag
+//    (MANY) keeps the register path's code as it was. The NPC descriptors
+//    come from a float table [8, n_npc] and each object column carries
+//    its NPC index and optional-object bit (colmap), so one binary serves
+//    every map. The agent and the duckiebots share one lane_query.
 //  * A stack of maps arrives as its members' tables concatenated: the
 //    word index gains mi * npw, the curve column mi * t_pad, the spawn pick
 //    mi * BANK_K and the goal pick mi * goal_k, where mi is the env's map
 //    row; each object column carries its member map (colmap row 2) and
 //    another map's column is skipped. Envs of one warp sit on different
 //    maps (round-robin assignment), so that skip diverges; it is exact.
-//  * Nav and multimap are template parameters (four kernels): the single
-//    map static path compiles without their registers, as before.
+//  * Nav, multimap and MANY are template parameters (eight kernels): the
+//    single map static path compiles without their registers, as before.
 //  * The DR redraw's multiply-adds are fmaf: the reference, as XLA builds
 //    it, contracts them (the plain version emulates the FMA in float64).
 //  * The integer hash computes +, << and ^ in uint32_t (defined
@@ -245,7 +250,7 @@ __device__ void lane_query(const Tables& t, int tid, float qx, float qz,
   *best_o = best_dot;
 }
 
-template <bool NAV, bool MULTI>
+template <bool NAV, bool MULTI, bool MANY>
 __global__ void __launch_bounds__(THREADS)
 state_step_kernel(const float* __restrict__ blob,
                   const float* __restrict__ act, float* __restrict__ out,
@@ -340,21 +345,32 @@ state_step_kernel(const float* __restrict__ blob,
   const bool all_driv = d_c2 & d_l & d_r & d_f;
 
   // ---- moving-NPC state machines (objects.py semantics) -----------------
+  // NPC i's state: registers up to MAX_NPC NPCs, else (MANY) its rows of
+  // the output blob, read and written in place (row f of env e at f*B + e:
+  // a warp's accesses of one row are coalesced)
   float npc_x[MAX_NPC], npc_z[MAX_NPC], npc_a[MAX_NPC], npc_w[MAX_NPC];
   float npc_v[MAX_NPC];
+  auto NS = [&](float* reg, int r, int i) -> float& {
+    if constexpr (MANY) {
+      return out[(F_NPC_BASE + NPC_ROWS * i + r) * B + e];
+    } else {
+      return reg[i];
+    }
+  };
   auto N = [&](int r, int i) { return __ldg(t.npc + r * n_npc + i); };
   for (int i = 0; i < n_npc; ++i) {
     const int base = F_NPC_BASE + NPC_ROWS * i;
-    npc_x[i] = row(base + 0);
-    npc_z[i] = row(base + 1);
-    npc_a[i] = row(base + 2);
-    npc_w[i] = row(base + 3);
-    npc_v[i] = row(base + 4);
+    NS(npc_x, 0, i) = row(base + 0);
+    NS(npc_z, 1, i) = row(base + 1);
+    NS(npc_a, 2, i) = row(base + 2);
+    NS(npc_w, 3, i) = row(base + 3);
+    NS(npc_v, 4, i) = row(base + 4);
   }
   for (int fs = 0; fs < (n_npc > 0 ? frame_skip : 0); ++fs) {
     for (int i = 0; i < n_npc; ++i) {
-      float nx = npc_x[i], nz = npc_z[i], na = npc_a[i], nw = npc_w[i];
-      const float nv = npc_v[i];
+      float nx = NS(npc_x, 0, i), nz = NS(npc_z, 1, i);
+      float na = NS(npc_a, 2, i), nw = NS(npc_w, 3, i);
+      const float nv = NS(npc_v, 4, i);
       float s_n, c_n;
       dt_sincos(na, &s_n, &c_n);
       if (static_cast<int>(N(NPC_KIND, i)) == NPC_DUCKIE) {
@@ -390,10 +406,10 @@ state_step_kernel(const float* __restrict__ blob,
         drive(&nx, &nz, &na, s_n, c_n, nv - steering, nv + steering,
               DT_F(0.102), dt);
       }
-      npc_x[i] = nx;
-      npc_z[i] = nz;
-      npc_a[i] = na;
-      npc_w[i] = nw;
+      NS(npc_x, 0, i) = nx;
+      NS(npc_z, 1, i) = nz;
+      NS(npc_a, 2, i) = na;
+      NS(npc_w, 3, i) = nw;
     }
   }
 
@@ -424,9 +440,9 @@ state_step_kernel(const float* __restrict__ blob,
       azs[1] = right_z;
       if (ni >= 0) {
         // live NPC footprint (objects.py::dynamic_corners)
-        const float nx = npc_x[ni], nz = npc_z[ni];
+        const float nx = NS(npc_x, 0, ni), nz = NS(npc_z, 1, ni);
         float s_n, c_n;
-        dt_sincos(npc_a[ni], &s_n, &c_n);
+        dt_sincos(NS(npc_a, 2, ni), &s_n, &c_n);
         const float fx_n = c_n, fz_n = -s_n, rx_n = s_n, rz_n = c_n;
         const float hw_n = N(NPC_HW, ni), hl_n = N(NPC_HL, ni);
         ocx[0] = nx - hl_n * fx_n - hw_n * rx_n;
@@ -567,10 +583,10 @@ state_step_kernel(const float* __restrict__ blob,
     // NPCs re-place at their initial poses; a duckie's walk speed is
     // redrawn ~N(0.02, 0.005) (Irwin-Hall sum of 4 hashed uniforms)
     for (int i = 0; i < n_npc; ++i) {
-      npc_x[i] = N(NPC_X0, i);
-      npc_z[i] = N(NPC_Z0, i);
-      npc_a[i] = N(NPC_A0, i);
-      npc_w[i] = 0.0f;
+      NS(npc_x, 0, i) = N(NPC_X0, i);
+      NS(npc_z, 1, i) = N(NPC_Z0, i);
+      NS(npc_a, 2, i) = N(NPC_A0, i);
+      NS(npc_w, 3, i) = 0.0f;
       if (static_cast<int>(N(NPC_KIND, i)) == NPC_DUCKIE) {
         float usum = 0.0f;
         for (int j = 0; j < 4; ++j) {
@@ -579,7 +595,8 @@ state_step_kernel(const float* __restrict__ blob,
           usum = usum + static_cast<float>(hv & 0xFFFF) / 65536.0f;
         }
         const float ih_scale = static_cast<float>(1.7320508f * 0.005f);
-        npc_v[i] = fmaxf(fmaf(usum - 2.0f, ih_scale, DT_F(0.02)), 0.001f);
+        NS(npc_v, 4, i) = fmaxf(fmaf(usum - 2.0f, ih_scale, DT_F(0.02)),
+                                0.001f);
       }
     }
     if (t.dr) {
@@ -628,7 +645,8 @@ state_step_kernel(const float* __restrict__ blob,
       step_cnt * dt, env_id, o_ldist, o_ldot, o_ldeg, o_inlane, map_row};
 #pragma unroll
   for (int f = 0; f < N_OUT; ++f) out[f * B + e] = rows[f];
-  for (int i = 0; i < n_npc; ++i) {
+  for (int i = 0; i < (MANY ? 0 : n_npc); ++i) {
+    // (MANY: the rows are in place already)
     const int base = F_NPC_BASE + NPC_ROWS * i;
     out[(base + 0) * B + e] = npc_x[i];
     out[(base + 1) * B + e] = npc_z[i];
@@ -662,8 +680,10 @@ extern "C" int dtown_state_step(const float* blob, const float* act,
                                 int frame_skip, int use_wm,
                                 int auto_reset, int n_npc, int dr, int n_opt,
                                 int n_maps, int t_pad, int npw,
-                                int nav, int goal_k, void* stream) {
-  if (n_npc > MAX_NPC || n_maps < 1)
+                                int nav, int goal_k, int npc_rows,
+                                void* stream) {
+  // more than MAX_NPC NPCs need their state in the blob rows (npc_rows)
+  if ((n_npc > MAX_NPC && !npc_rows) || n_maps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Tables t;
   t.words = words;
@@ -690,17 +710,22 @@ extern "C" int dtown_state_step(const float* blob, const float* act,
   t.ts_inv = 0.0f;  // read from prm inside the kernel
   const int blocks = (B + THREADS - 1) / THREADS;
   auto st = static_cast<cudaStream_t>(stream);
-  // nav and a stack of more than one map pick the specialisation
-  switch ((nav ? 2 : 0) | (n_maps > 1 ? 1 : 0)) {
-#define DT_LAUNCH(k, N, M_)                                              \
+  // nav, a stack of more than one map and NPC state in the blob rows pick
+  // the specialisation
+  switch ((npc_rows ? 4 : 0) | (nav ? 2 : 0) | (n_maps > 1 ? 1 : 0)) {
+#define DT_LAUNCH(k, N, M_, R)                                           \
   case k:                                                                \
-    state_step_kernel<N, M_><<<blocks, THREADS, 0, st>>>(                \
+    state_step_kernel<N, M_, R><<<blocks, THREADS, 0, st>>>(             \
         blob, act, out, t, prm, B, nf, frame_skip, use_wm, auto_reset);  \
     break;
-    DT_LAUNCH(0, false, false)
-    DT_LAUNCH(1, false, true)
-    DT_LAUNCH(2, true, false)
-    DT_LAUNCH(3, true, true)
+    DT_LAUNCH(0, false, false, false)
+    DT_LAUNCH(1, false, true, false)
+    DT_LAUNCH(2, true, false, false)
+    DT_LAUNCH(3, true, true, false)
+    DT_LAUNCH(4, false, false, true)
+    DT_LAUNCH(5, false, true, true)
+    DT_LAUNCH(6, true, false, true)
+    DT_LAUNCH(7, true, true, true)
 #undef DT_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());

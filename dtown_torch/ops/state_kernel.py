@@ -340,13 +340,6 @@ def _build_tables_single(cfg, maps):
     )
 
 
-def _check_scope(cfg, tables):
-    if len(tables["npcs"]) > MAX_NPC:
-        raise NotImplementedError(
-            f"{len(tables['npcs'])} moving NPCs; the kernel holds at most "
-            f"{MAX_NPC}")
-
-
 # ---- kernel scalar parameters ------------------------------------------
 # Python-double constant folds of the reference, rounded once to float32
 # (what jnp does with a Python float next to an f32 array). The CUDA
@@ -362,6 +355,8 @@ NPC_F = 8
 (NPC_KIND, NPC_X0, NPC_Z0, NPC_A0, NPC_HW, NPC_HL, NPC_RAD,
  NPC_WALK) = range(NPC_F)
 NPC_DUCKIE, NPC_BOT = 0, 1
+# NPCs whose state the kernel keeps in registers; past this count it reads
+# and writes their rows of the output blob in place (``npc_rows``)
 MAX_NPC = 8
 
 # hash-stream salts of the in-kernel draws: _u01(tag) of the DR redraw and
@@ -424,8 +419,9 @@ def device_tables(cfg, tables, device, nav=None):
     (the DR redraw's lo and span per _u01 tag, Python-double folds rounded
     once), ``n_ok_v`` and ``n_driv`` int32 [n_maps] (each member's
     accepted-bank and drivable-tile counts) and, with the Nav task (``nav``
-    = build_goal_table(maps)), ``goal`` [8, n_maps * goal_k]."""
-    _check_scope(cfg, tables)
+    = build_goal_table(maps)), ``goal`` [8, n_maps * goal_k]; and
+    ``npc_rows``, whether the kernel keeps the NPCs' state in the blob
+    rows (more than MAX_NPC NPCs) rather than in registers."""
     dev = torch.device(device)
     npcs = tuple(tables["npcs"])
     dr = bool(cfg.domain_rand)
@@ -465,7 +461,8 @@ def device_tables(cfg, tables, device, nav=None):
         frame_skip=int(cfg.frame_skip),
         use_wm=bool(cfg.use_wheel_model),
         auto_reset=bool(cfg.auto_reset),
-        npcs=npcs, n_npc=len(npcs), domain_rand=dr,
+        npcs=npcs, n_npc=len(npcs), npc_rows=len(npcs) > MAX_NPC,
+        domain_rand=dr,
         n_opt=len(tables["opt_cols"]) if dr else 0,
         n_maps=n_maps,
         t_pad=int(multi["t_pad"] if multi else tables["Hg"] * tables["Wg"]),
@@ -937,7 +934,7 @@ def _lib():
     fn = lib.dtown_state_step
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 14
-                       + [ctypes.c_int] * 17 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 18 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -980,7 +977,7 @@ def state_step(blob, actions, dev):
              int(dev["use_wm"]), int(dev["auto_reset"]), dev["n_npc"],
              int(dev["domain_rand"]), dev["n_opt"], dev["n_maps"],
              dev["t_pad"], dev["npw"], int(dev["nav"]), dev["goal_k"],
-             stream)
+             int(dev["npc_rows"]), stream)
     if err != 0:
         raise RuntimeError(f"state_step kernel launch failed: CUDA error "
                            f"{err}")

@@ -36,8 +36,11 @@ Differences from the TPU kernel, none beyond rounding: the static RGB
 ground is shaded in float32 and quantized once (the TPU default carries
 packed u8 bytes; the two differ by <= ~2 counts), prims fold sequentially
 instead of pair-combined (same winner), objects are visited in plan order,
-and static objects skip the TPU kernel's conservative cluster culls (they
-never change a pixel; the moving NPCs' view half-plane cull is kept).
+and the TPU kernel's conservative cluster culls become, in the CUDA
+kernel, one per-object view cull (``pack_plan``'s ``view_cull``) and a
+per-pixel bounding-sphere test (``kept`` and ``sphere_pass`` mirror them):
+they never change a pixel, so the plain version renders every object; the
+moving NPCs' view half-plane cull is kept in both.
 """
 from __future__ import annotations
 
@@ -68,6 +71,16 @@ LANE_N = 128  # pixel lane width of the [S, 128] frame layout
 # Triangles per OBJ-registered object on the fused path (largest first;
 # each costs about two box primitives in the kernel)
 KERNEL_TRI_BUDGET = 8
+# Primitives a box/sphere object holds at most (meshes.P_MAX): with
+# KERNEL_TRI_BUDGET, the capacity of the kernel's compacted list
+MAX_OBJ_PRIMS = meshlib.P_MAX
+# The margin (world units) beyond an object's bounding radius of the
+# kernel's view cull and bounding-sphere test, so that float32 rounding of
+# a hit near the plane or the sphere cannot show an object they skip; and
+# the least horizontal forward component of a unit ray with which
+# pack_plan turns the view cull on
+VIEW_PAD = 0.01
+VIEW_MIN_FWD = 0.01
 
 
 def pack_tile_words(kind, ang):
@@ -444,11 +457,17 @@ _SCENE_NAMES = (
     "a_other", "a_grass", "a_road", "l_out",
     # traffic-light lamp lumas, green and red
     "l_green", "l_red",
+    # 1.0: the kernel skips objects wholly behind the camera's forward
+    # half-plane (pack_plan's view_cull), else 0.0
+    "view_cull",
 )
-# per-object floats (O_*) and ints (OI_*)
-OBJ_F = 12
+# per-object floats (O_*) and ints (OI_*). O_RV: the view radius of the
+# NPCs the reference culls by the camera's half-plane (OI_PRED); O_RB: the
+# bounding radius and VIEW_PAD, of the kernel's view cull and its per-pixel
+# bounding-sphere test
+OBJ_F = 13
 (O_X, O_Y, O_Z, O_SR, O_CR, O_INVS, O_SC, O_LMX, O_LMY, O_LMZ,
- O_CULL2, O_RV) = range(12)
+ O_CULL2, O_RV, O_RB) = range(13)
 OBJ_I = 8
 # OI_MODEL: the object has a box or a triangle (its rays go to model space)
 OI_P0, OI_NP, OI_MODEL, OI_NPC, OI_OPT, OI_WIG, OI_PRED, OI_MAP = range(8)
@@ -511,11 +530,42 @@ def _luma_consts(plan, aa, dr):
     )
 
 
+def rays_face_forward(cfg, plan, dr_ranges=None):
+    """Whether every ray of cfg's frame has a horizontal forward component
+    of at least VIEW_MIN_FWD (unit rays), which makes the kernel's view cull
+    exact. Without domain randomization: the static planes' A (the forward
+    component after the yaw rotation). Under it: the NDC table's yb at every
+    draw of the fov and pitch ranges (``dr_ranges``: ((fov lo, hi), (pitch
+    lo, hi)) in degrees, the state kernel's redraw ranges by default), where
+    the forward component is cos p + yb tan(fov / 2) sin p over the ray's
+    length, at most sqrt(1 + xn^2 + yn^2)."""
+    H, W, fisheye = cfg.camera_height, cfg.camera_width, cfg.distortion
+    if not plan["domain_rand"]:
+        A = _static_ray_planes(H, W, plan, fisheye)[0]
+        return bool(A.min() >= VIEW_MIN_FWD)
+    if dr_ranges is None:
+        rng = sk._dr_ranges(cfg)
+        dr_ranges = (rng[2], rng[4])
+    (f_lo, f_hi), (p_lo, p_hi) = dr_ranges
+    xb, yb = (np.asarray(v, np.float64) for v in _ndc_table(H, W, fisheye))
+    worst = math.inf
+    for f in np.linspace(f_lo, f_hi, 9):
+        th = math.tan(0.5 * math.radians(f))
+        norm = math.sqrt(1.0 + (np.abs(xb).max() * th * (W / H)) ** 2
+                         + (np.abs(yb).max() * th) ** 2)
+        for pd in np.linspace(p_lo, p_hi, 9):
+            sp, cp = math.sin(math.radians(pd)), math.cos(math.radians(pd))
+            fwd = cp + np.array([yb.min(), yb.max()]) * th * sp
+            worst = min(worst, float(fwd.min()) / norm)
+    return worst >= VIEW_MIN_FWD
+
+
 def pack_plan(cfg, plan, device):
     """Flatten a render plan into the kernel's device tables.
 
     Every value is the reference's Python-double constant fold, rounded
-    once to float32. Returns a dict of tensors and ints."""
+    once to float32. Returns a dict of tensors and ints; ``view`` says
+    whether the kernel's view cull is on (``rays_face_forward``)."""
     H, W = cfg.camera_height, cfg.camera_width
     if (H * W) % LANE_N:
         raise ValueError(f"H*W must be a multiple of {LANE_N}: {H}x{W}")
@@ -527,6 +577,7 @@ def pack_plan(cfg, plan, device):
     aa = bool(plan["aa"]) and marking
     amb = plan["ambient"]
     tany = plan["tan_half"]
+    view = rays_face_forward(cfg, plan)
     scene = dict(
         cam_fwd=plan["cam_fwd"], cam_height=plan["cam_height"],
         ts_inv=plan["ts_inv"],
@@ -540,6 +591,7 @@ def pack_plan(cfg, plan, device):
         dt=plan["dt"], inv_tl=1.0 / plan["tl_period"],
         aspect=W / H, deg=math.pi / 180.0, half_h=H * 0.5,
         **_luma_consts(plan, aa, dr),
+        view_cull=1.0 if view else 0.0,
     )
     cull_w = math.sqrt(plan["cull2"])
     objs = plan["objs"]
@@ -551,6 +603,11 @@ def pack_plan(cfg, plan, device):
     pi = np.zeros((max(n_prims, 1), PRIM_I), np.int32)
     j = 0
     for i, ob in enumerate(objs):
+        cap = KERNEL_TRI_BUDGET if any(p.get("is_tri") for p in ob["prims"]) \
+            else MAX_OBJ_PRIMS
+        if len(ob["prims"]) > cap:
+            raise ValueError(f"object {i} has {len(ob['prims'])} primitives;"
+                             f" the blob render kernel holds {cap}")
         ox, oy, oz = ob["pos"]
         s_r, c_r, sc = ob["s_r"], ob["c_r"], ob["scale"]
         culld_o = float(ob.get("culld", cull_w))
@@ -559,6 +616,7 @@ def pack_plan(cfg, plan, device):
         of[i, [O_LMX, O_LMY, O_LMZ]] = ob["l_model"]
         of[i, O_CULL2] = culld_o * culld_o
         of[i, O_RV] = view_r.get(i, 0.0)
+        of[i, O_RB] = _bound_radius(ob) + VIEW_PAD
         oi[i, OI_P0] = j
         oi[i, OI_NP] = len(ob["prims"])
         oi[i, OI_MODEL] = int(any(p["is_box"] or p.get("is_tri")
@@ -630,7 +688,7 @@ def pack_plan(cfg, plan, device):
         pf=torch.as_tensor(pf, device=dev), pi=torch.as_tensor(pi, device=dev),
         n_objs=len(objs), Hg=plan["Hg"], Wg=plan["Wg"],
         aa=aa, any_x=any(k in present for k in INTERSECTION_KINDS),
-        no_clamp=no_clamp,
+        no_clamp=no_clamp, view=view,
         tri=any(p.get("is_tri") for ob in objs for p in ob["prims"]),
         n_maps=multi["n_maps"] if multi else 1,
         npw=multi["npw"] if multi else 0,
@@ -962,6 +1020,146 @@ def render_frames_reference(blob, pk):
     planes = [l_] if gray else [r_, g_, b_]
     out = torch.stack([to_u8(v.expand(B, P)) for v in planes], dim=1)
     return out.reshape(B, len(planes), P // LANE_N, LANE_N)
+
+
+def kept(blob, pk):
+    """Plain torch mirror of the blob render kernel's keep predicate (the
+    per-block prologue of csrc/blob_render.cu), in its float32 operations;
+    used by tests and chip_smoke.py's bounds. Returns (objects bool [B,
+    n_objs], primitives bool [B, n_prims]): what each env's pixel pass
+    walks. An object is kept when it lies on the env's member map, within
+    its cull distance, visible under the env's optional-object bits, not
+    wholly behind the camera's forward half-plane (the NPCs the reference
+    culls so, and every object when pk["view"]) and left with a primitive
+    by the LOD culls; a primitive when its object passes those culls and
+    its own LOD cull."""
+    b = blob.detach().cpu()
+    B = b.shape[1]
+    scene = dict(zip(_SCENE_NAMES, [float(v) for v in pk["scene"].cpu()]))
+    s_a, c_a = sincos(b[sk.F_ANGLE])
+    camf = b[pk["drb"] + sk.DR_CAMF] if pk["dr"] else scene["cam_fwd"]
+    eye0 = b[sk.F_POS_X] + camf * c_a
+    eye2 = b[sk.F_POS_Z] + camf * (-s_a)
+    vis = b[pk["drb"] + sk.DR_OBJVIS].to(torch.int32) if pk["dr"] else None
+    mid = b[sk.F_MAPID].to(torch.int32)
+    of, oi = pk["of"].cpu(), pk["oi"].cpu().tolist()
+    pf, pi = pk["pf"].cpu(), pk["pi"].cpu().tolist()
+    n_o = pk["n_objs"]
+    keep_o = torch.zeros((B, n_o), dtype=torch.bool)
+    keep_p = torch.zeros((B, len(pi)), dtype=torch.bool)
+    for o in range(n_o):
+        p0, n_p, _, npc, opt, _, pred, omap = oi[o]
+        if npc >= 0:
+            base = sk.F_NPC_BASE + sk.NPC_ROWS * npc
+            ox, oz = b[base], b[base + 1]
+        else:
+            ox, oz = of[o, O_X], of[o, O_Z]
+        dxo = ox - eye0
+        dzo = oz - eye2
+        dist2 = dxo * dxo + dzo * dzo
+        k = dist2 < of[o, O_CULL2]
+        if pk["n_maps"] > 1:
+            k = k & (mid == omap)
+        if opt >= 0:
+            k = k & (((vis >> opt) & 1) > 0)
+        fwd = dxo * c_a - dzo * s_a
+        if pred:
+            k = k & (fwd > -of[o, O_RV])
+        if pk["view"]:
+            k = k & (fwd > -of[o, O_RB])
+        for j in range(p0, p0 + n_p):
+            keep_p[:, j] = k & (dist2 < pf[j, P_CD2]) if pi[j][PI_OWN] else k
+        if n_p:
+            keep_o[:, o] = keep_p[:, p0:p0 + n_p].any(1)
+    return keep_o, keep_p
+
+
+def sphere_pass(blob, pk):
+    """Plain torch mirror of the kernel's per-pixel bounding-sphere test,
+    in its float32 operations, on the blob's device: bool [B, n_objs, P],
+    True where the object is kept (``kept``) and the pixel's ray meets the
+    object's bounding sphere (radius O_RB around its position) or starts
+    inside it. The kernel skips the object's primitives on every other
+    pixel: none of them can be hit there."""
+    dev = blob.device
+    b = blob.detach()
+    B = b.shape[1]
+    scene = dict(zip(_SCENE_NAMES, [float(v) for v in pk["scene"].cpu()]))
+    col = lambda f: b[f][:, None]                        # [B, 1]
+    s_a, c_a = sincos(col(sk.F_ANGLE))
+    rays = pk["rays"].to(dev)
+    if pk["dr"]:
+        d = lambda k: col(pk["drb"] + k)
+        s_h, c_h = sincos(0.5 * d(sk.DR_FOV) * scene["deg"])
+        tany = s_h / c_h
+        tanx = tany * scene["aspect"]
+        sp, cp = sincos(d(sk.DR_CAMA) * scene["deg"])
+        camh, camf = d(sk.DR_CAMH), d(sk.DR_CAMF)
+        xn = rays[0][None, :] * tanx
+        yn = rays[1][None, :] * tany
+        dx = cp * c_a + xn * s_a + yn * (sp * c_a)
+        dy = -sp + yn * cp
+        dz = -cp * s_a + xn * c_a + yn * (-sp * s_a)
+        inv_n = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+        dx, dy, dz = dx * inv_n, dy * inv_n, dz * inv_n
+    else:
+        camh, camf = scene["cam_height"], scene["cam_fwd"]
+        A, Bp, D = (rays[i][None, :] for i in range(3))
+        dx = c_a * A + s_a * Bp
+        dy = D.expand_as(dx)
+        dz = c_a * Bp - s_a * A
+    eye0 = col(sk.F_POS_X) + camf * c_a
+    eye1 = col(sk.F_POS_Y) + camh
+    eye2 = col(sk.F_POS_Z) + camf * (-s_a)
+    keep_o, _ = kept(blob, pk)
+    of, oi = pk["of"].to(dev), pk["oi"].cpu().tolist()
+    out = torch.zeros((B, pk["n_objs"], dx.shape[1]), dtype=torch.bool,
+                      device=dev)
+    for o in range(pk["n_objs"]):
+        npc = oi[o][OI_NPC]
+        if npc >= 0:
+            base = sk.F_NPC_BASE + sk.NPC_ROWS * npc
+            ox, oz = col(base), col(base + 1)
+        else:
+            ox, oz = of[o, O_X], of[o, O_Z]
+        bx, by, bz = ox - eye0, of[o, O_Y] - eye1, oz - eye2
+        c2 = bx * bx + by * by + bz * bz - of[o, O_RB] * of[o, O_RB]
+        bq = bx * dx + by * dy + bz * dz
+        miss = (c2 > 0.0) & ((bq < 0.0) | (bq * bq < c2))
+        out[:, o] = ~miss & keep_o[:, o].to(dev)[:, None]
+    return out
+
+
+def compact(blob, pk):
+    """The compacted lists the kernel's prologue builds from ``kept``: per
+    env (objects, primitives, ends), each kept object at its rank (the
+    count of kept objects before it) and its kept primitives at the sum of
+    the kept primitive counts of the kept objects before it; ends[i] is
+    the end of object i's primitives."""
+    keep_o, keep_p = kept(blob, pk)
+    oi = pk["oi"].cpu()
+    p0, n_p = oi[:pk["n_objs"], OI_P0].tolist(), oi[:pk["n_objs"],
+                                                      OI_NP].tolist()
+    count = torch.stack([keep_p[:, a:a + n].sum(1) for a, n in zip(p0, n_p)],
+                        1) if pk["n_objs"] else keep_o.long()
+    count = torch.where(keep_o, count, 0)
+    rank = torch.cumsum(keep_o.long(), 1) - keep_o.long()
+    off = torch.cumsum(count, 1) - count
+    lists = []
+    for e in range(keep_o.shape[0]):
+        n_k = int(keep_o[e].sum())
+        objs, ends = [-1] * n_k, [0] * n_k
+        prims = [-1] * int(count[e].sum())
+        for o in torch.nonzero(keep_o[e]).flatten().tolist():
+            objs[rank[e, o]] = o
+            k = int(off[e, o])
+            ends[rank[e, o]] = k + int(count[e, o])
+            for j in range(p0[o], p0[o] + n_p[o]):
+                if keep_p[e, j]:
+                    prims[k] = j
+                    k += 1
+        lists.append((objs, prims, ends))
+    return lists
 
 
 def _lib():

@@ -15,7 +15,7 @@ Phases (any failure exits non-zero and prints no result):
   2. build the four kernel sources from dtown_torch/csrc (one nvcc each,
      in parallel), printing registers and spill of every specialisation
      and, per source, the kernel count, register range and the kernels
-     that spill;
+     that spill (row_render.cu must spill nowhere);
   3. the fused RGB rollout on loop_obstacles, 64 envs 32x32, 5 steps, on
      the card vs on the CPU from the same blob;
   4. the fused rollout in each configuration, each with its own launch
@@ -72,8 +72,11 @@ Phases (any failure exits non-zero and prints no result):
      std > 5 and finite rewards; the split between physics and render,
      and a torch.profiler trace of 32 steps (kernel device time per
      launch, idle share);
-  7. K3 and K4 vs their plain versions on those runs' 4096-env states, at
-     the blob render's bars, the plain versions' times and the bounds;
+  7. K3 and K4 vs their plain versions on those runs' 4096-env states
+     (max |diff| 0) and on the same envs posed 0.3-0.8 m from the map's
+     objects, half facing one (max |diff| 0), the plain versions' times
+     and the bounds, counted by the kernels' own culls (row_raster.
+     row_kept, row_sphere_pass) like the blob render's;
   8. the throughput probe (K5, python -m dtown_torch.probes) in float32
      and bfloat16 at the reference probe's [4096, 32, 128], 256 steps:
      the probe's loop (its launches counted), the kernel vs its plain
@@ -140,12 +143,27 @@ K2_OPS_MAP = 2            # a stack's map test of one object
 # BASELINE config 5's maps and scripts/bench_all.sh's 6-map curriculum
 STACK3 = ["zigzag_dists", "4way", "udem1"]
 STACK6 = STACK3 + ["small_loop", "loop_obstacles", "s_bend"]
-# row_render.cu (K3 and K4 share the pixel pass and the primitive test)
+# row_render.cu (K3 and K4 share the pixel pass, the culls, the primitive
+# tests and the shading); per pixel
 K34_OPS_PIXEL = 165       # NDC table, ray normalize, ground, tile, sky, output
-K34_OPS_SLOT = 2          # cull flag test of one object slot
-K34_OPS_OBJECT = 35       # model-space ray and slab reciprocals of an object
-K34_OPS_BOX = 85          # one box: slabs, hit, normal, Lambert, fold
-K34_OPS_SPHERE = 66       # one sphere: quadratic, hit, normal, Lambert, fold
+K34_OPS_BOUND = 12        # a kept object's bounding-sphere test (record load,
+                          # b = oc . d, compares)
+K34_OPS_OBJECT = 14       # an object's ray in model space where its sphere is
+                          # met (2 record loads, dmx, dmz, its prim range)
+K34_OPS_BOX_OBJECT = 12   # 1/dmx and 1/dmz of an object that holds a box
+K34_OPS_BOX = 35          # one box: 2 record loads, slabs from the folded
+                          # offsets, hit, nearest-hit update
+K34_OPS_SPHERE = 26       # one sphere (K4's padded slots too): 2 loads, b,
+                          # disc, root, hit, nearest-hit update
+K34_OPS_SHADE = 55        # the winner's hit point, normal, Lambert term and
+                          # colour, once on a pixel an object covers
+# once per env (the kernels' per-block prologue; the bound counts it once
+# per env, not once per block)
+K34_OPS_SLOT = 4          # the keep flag of one object slot, compaction
+K34_OPS_OBJECT_ENV = 40   # a kept object's eye in model space, bounding
+                          # sphere, lamp colour, records
+K34_OPS_RADIUS_SLOT = 12  # K4: one slot's reach in the object's radius
+K34_OPS_PRIM_ENV = 20     # a kept primitive's folded record
 # K2's plain version in slices of envs above this many pixels in all
 PLAIN_PIXELS = 1 << 25
 # the sample mesh of tests/test_objmesh.py: two wall quads and a roof
@@ -280,40 +298,94 @@ def profile_window(window, kernels, keys=False):
     return per, busy, start.elapsed_time(end)
 
 
-def k34_ops(rows, pk, P):
-    """Operations the row-fed render needs on these rows: per pixel the
-    ground pass; per env the objects its cull flags keep and their real
-    primitives. K4's rows pad every object to P_MAX primitive slots, and
-    a padded slot (zero extents) is not counted; the kernel tests it all
-    the same, as the reference does."""
+def k34_ops(rows, pk, covered):
+    """Operations the row-fed render needs on these rows, by the kernels'
+    own culls: per pixel the ground pass and the bounding-sphere test of
+    each object its env keeps (row_raster.row_kept); an object's model ray
+    and primitive tests (K4's padded slots at their folded sphere cost)
+    only on the pixels whose rays meet its sphere (row_raster.
+    row_sphere_pass, on the card in slices of envs); the winner's shading
+    once on each pixel an object covers (``covered`` [B], counted where the
+    frame differs from the frame without objects, so never above the
+    kernel's count); per env the prologue: each slot's keep flag, a kept
+    object's model eye and sphere (K4: its radius from every slot) and a
+    kept primitive's folded record."""
     import torch
     from dtown_torch.render import row_raster as rr
 
+    P = pk["H"] * pk["W"]
+    B = rows[0].shape[0]
+    kept = rr.row_kept(rows, pk).double().cpu()        # [B, n]
+    hits = torch.zeros_like(kept)
+    n = max(1, (1 << 24) // (P * max(kept.shape[1], 1)))
+    for i in range(0, B, n):
+        hits[i:i + n] = rr.row_sphere_pass(
+            [r[i:i + n] for r in rows], pk).sum(2).double().cpu()
     if pk["static"]:
-        flags = rows[2].cpu().double()
-        spi = pk["spi"].cpu()
-        soi = pk["soi"].cpu()
-        per_env = torch.full((flags.shape[0],), float(K34_OPS_PIXEL),
-                             dtype=torch.float64)
-        for o in range(pk["n_objs"]):
-            act = (flags[:, 2 * o] > 0.5).double()
-            j0, n_p = int(soi[o, 0]), int(soi[o, 1])
-            cost = K34_OPS_OBJECT + sum(
-                K34_OPS_BOX if int(spi[j, rr.SPI_BOX]) else K34_OPS_SPHERE
-                for j in range(j0, j0 + n_p))
-            per_env += K34_OPS_SLOT + act * cost
-        return float(per_env.sum()) * P
-    obj = rows[2].cpu().double().reshape(rows[2].shape[0], -1, rr.OBJ_F)
-    prim = rows[3].cpu().double().reshape(
-        obj.shape[0], obj.shape[1], rr.P_MAX, rr.PRIM_F)
-    is_box = (prim[..., 0] > 0.5).double()
-    real = (prim[..., 4] > 0.0).double()          # nonzero extent
-    cost = (K34_OPS_OBJECT
-            + (real * (is_box * K34_OPS_BOX
-                       + (1 - is_box) * K34_OPS_SPHERE)).sum(-1))
-    act = (obj[..., 7] > 0.5).double()
-    per_env = K34_OPS_PIXEL + (K34_OPS_SLOT + act * cost).sum(-1)
-    return float(per_env.sum()) * P
+        soi, spi = pk["soi"].cpu().tolist(), pk["spi"].cpu().tolist()
+        box = [[spi[j][rr.SPI_BOX] for j in range(j0, j0 + n_p)]
+               for j0, n_p in soi[:pk["n_objs"]]]
+        prim_cost = torch.tensor([[sum(K34_OPS_BOX if b else K34_OPS_SPHERE
+                                       for b in bs) for bs in box]],
+                                 dtype=torch.float64)
+        n_prims = torch.tensor([[len(bs) for bs in box]],
+                               dtype=torch.float64)
+        box_obj = torch.tensor([[float(any(bs)) for bs in box]],
+                               dtype=torch.float64)
+        radius = 0
+    else:
+        prim = rows[3].cpu().double().reshape(B, -1, rr.P_MAX, rr.PRIM_F)
+        is_box = (prim[..., 0] > 0.5).double()
+        prim_cost = (is_box * K34_OPS_BOX
+                     + (1 - is_box) * K34_OPS_SPHERE).sum(-1)
+        n_prims = rr.P_MAX
+        box_obj = (is_box.sum(-1) > 0).double()
+        radius = rr.P_MAX * K34_OPS_RADIUS_SLOT
+    per_env = (P * K34_OPS_PIXEL + covered.double().cpu() * K34_OPS_SHADE
+               + kept.shape[1] * K34_OPS_SLOT
+               + (kept * (K34_OPS_OBJECT_ENV + radius
+                          + n_prims * K34_OPS_PRIM_ENV
+                          + P * K34_OPS_BOUND)).sum(1)
+               + (hits * (K34_OPS_OBJECT + box_obj * K34_OPS_BOX_OBJECT
+                          + prim_cost)).sum(1))
+    return float(per_env.sum())
+
+
+def without_objects(rows, pk):
+    """The rows with every object culled: K3's cull flags, K4's active
+    flags off."""
+    from dtown_torch.render import row_raster as rr
+
+    rows = [r.clone() for r in rows]
+    if pk["static"]:
+        rows[2][:, 0::2] = 0.0
+    else:
+        rows[2].view(rows[2].shape[0], -1, rr.OBJ_F)[..., 7] = 0.0
+    return rows
+
+
+def posed_states(states, maps, seed):
+    """The states with env b at 0.3-0.8 m from live object b % n_live,
+    facing it (even b) or turned away from it (odd b): the poses of
+    tests/test_torch_row_render_cull.py."""
+    import math
+    import numpy as np
+    import torch
+
+    B, dev = states.batch_size, states.pos.device
+    rng = np.random.default_rng(seed)
+    live = torch.nonzero(maps.obj_mask).flatten()
+    b = torch.arange(B, device=dev)
+    opos = states.dyn.pos[b, live[b % len(live)]]
+    a = torch.as_tensor(rng.uniform(-math.pi, math.pi, B),
+                        dtype=torch.float32, device=dev)
+    d = torch.as_tensor(rng.uniform(0.3, 0.8, B), dtype=torch.float32,
+                        device=dev)
+    pos = states.pos.clone()
+    pos[:, 0] = opos[:, 0] - d * torch.cos(a)
+    pos[:, 2] = opos[:, 2] + d * torch.sin(a)
+    angle = torch.where(b % 2 == 0, a, a + math.pi)
+    return states.replace(pos=pos, angle=angle)
 
 
 def bound(nbytes, nops):
@@ -467,8 +539,10 @@ def vec_main_path(map_name, dev, smi, n_steps=256, **kw):
 
 
 def row_kernel_check(run, dev):
-    """K3 or K4 vs its plain version on the main path's 4096-env states;
-    returns (max |diff|, plain ms, bound ms, bound_by)."""
+    """K3 or K4 vs its plain version on the main path's 4096-env states
+    (max |diff| 0, the bars below as a floor) and on those states posed
+    near the map's objects (posed_states); returns (max |diff|, plain ms,
+    bound ms, bound_by)."""
     import torch
     from dtown_torch.render import row_raster as rr
 
@@ -486,22 +560,39 @@ def row_kernel_check(run, dev):
     mean = float(diff.float().mean())
     frac = float((diff > 2).float().mean())
     err = float(diff.max())
-    del img_k, img_r, diff
+    del img_k, diff
     print(f"{name} vs plain: {states.batch_size} envs 64x64, mean |diff| "
           f"{mean:.3g}, share |diff|>2 {frac:.3g}, max {err:.0f}")
-    if not (mean <= 0.01 and frac <= 1e-4):
-        raise AssertionError(f"{name} kernel outside its bars")
+    if not (mean <= 0.01 and frac <= 1e-4) or err > 0:
+        raise AssertionError(f"{name} kernel differs from its plain version")
+    # the pixels an object covers: where the frame differs from the frame
+    # without objects
+    img_g = plain(*without_objects(rows, pk), pk)
+    covered = (img_r != img_g).any(1).reshape(img_r.shape[0], -1).sum(1)
+    del img_r, img_g
+    # the same envs posed near objects, half of them facing one
+    posed = rr.prepare_rows(cfg, maps, posed_states(states, maps, 4), pk)
+    err_p = float((kern(*posed, pk).int() - plain(*posed, pk).int())
+                  .abs().max())
+    kept = rr.row_kept(posed, pk).sum(1).float()
+    print(f"{name} vs plain on posed states: max |diff| {err_p:.0f} "
+          f"(objects kept per env {float(kept.mean()):.3g}, the unposed "
+          f"states {float(rr.row_kept(rows, pk).sum(1).float().mean()):.3g})")
+    if err_p > 0:
+        raise AssertionError(f"{name} kernel differs from its plain version "
+                             f"on the posed states")
     P = pk["H"] * pk["W"]
     tabs = ("ndc",) + (("sof", "soi", "spf", "spi") if pk["static"]
                        else ())
     nbytes = (states.batch_size * 3 * P
               + sum(r.numel() * r.element_size() for r in rows)
               + sum(pk[k].numel() * pk[k].element_size() for k in tabs))
-    nops = k34_ops(rows, pk, P)
+    nops = k34_ops(rows, pk, covered)
     b_ms, b_by = bound(nbytes, nops)
     print(f"{name}: {run['ms']:.5f} ms/launch (plain {plain_ms:.4f} ms), "
-          f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {nops:.4g} ops)")
-    return err, plain_ms, b_ms, b_by
+          f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {nops:.4g} ops; "
+          f"pixels covered by an object {float(covered.sum()):.6g})")
+    return max(err, err_p), plain_ms, b_ms, b_by
 
 
 def k2_ops(blob, pk, P):
@@ -1031,7 +1122,10 @@ def main():
         for line in lines:
             print(f"  {name}: {line}")
         if log:
-            print(f"  {name}: {spill_summary(lines)}")
+            summary = spill_summary(lines)
+            print(f"  {name}: {summary}")
+            if name == "row_render" and not summary.endswith("none"):
+                raise AssertionError(f"row_render.cu spills: {summary}")
 
     # ---- fused rollout: card vs CPU on a small input -----------------------------
     maps = dtown_torch.load_map("loop_obstacles")

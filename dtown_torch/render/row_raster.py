@@ -31,7 +31,11 @@ so objects are still drawn.
 A wrapper takes its plain version only for CPU tensors; on CUDA tensors it
 launches the kernel or raises. The plain versions keep the kernels'
 float32 operation order (no FMA, divisions by tensors, 1/sqrt for the
-reference's rsqrt), so on the card the two agree to the bit.
+reference's rsqrt), so on the card the two agree to the bit. The kernels
+skip objects by a keep flag and a per-pixel bounding-sphere test, which
+change no pixel; ``row_kept``, ``row_bound_spheres`` and
+``row_sphere_pass`` mirror those culls for the tests and chip_smoke.py's
+bounds, and nothing on the main path calls them.
 """
 from __future__ import annotations
 
@@ -65,9 +69,10 @@ P_MAX = meshlib.P_MAX
 # K3 scene table (csrc/row_render.cu SO_* / SP_* indices): per object
 # floats and ints, per primitive floats and ints. Constants that the
 # reference folds in Python doubles (sin/cos of -rot, 1/scale, r^2,
-# 1/half-extent) are folded in float64 here and stored as float32.
-SO_F = 7
-SO_X, SO_Y, SO_Z, SO_SR, SO_CR, SO_INVS, SO_SC = range(7)
+# 1/half-extent) are folded in float64 here and stored as float32. SO_RB:
+# the kernel's world bounding radius (VIEW_PAD included).
+SO_F = 8
+SO_X, SO_Y, SO_Z, SO_SR, SO_CR, SO_INVS, SO_SC, SO_RB = range(8)
 SO_I = 2
 SOI_P0, SOI_NP = range(2)
 SP_F = 13
@@ -77,6 +82,8 @@ SP_I = 2
 SPI_BOX, SPI_LAMP = range(2)
 
 MAX_STATIC_OBJECTS = 16
+# margin of the kernels' bounding spheres for float32 rounding (1 cm)
+VIEW_PAD = 0.01
 LAMP_GREEN = (0.1, 0.85, 0.15)
 LAMP_RED = (0.9, 0.1, 0.1)
 
@@ -249,6 +256,18 @@ def _build_static_scene(cfg, maps):
     return scene
 
 
+def _bound_radius(ob):
+    """World bounding radius of a K3 object around its position: the reach
+    of its farthest primitive (|c| + r, or |c| + |half extents| for a box)
+    times its scale, plus VIEW_PAD; float64."""
+    r = 0.0
+    for pr in ob["prims"]:
+        c, p = pr["center"], pr["param"]
+        reach = math.sqrt(sum(x * x for x in p)) if pr["is_box"] else p[0]
+        r = max(r, math.sqrt(sum(x * x for x in c)) + reach)
+    return r * ob["scale"] + VIEW_PAD
+
+
 def pack_static_scene(scene):
     """The K3 scene as flat numpy tables (sof, soi, spf, spi)."""
     n_prims = sum(len(ob["prims"]) for ob in scene)
@@ -258,7 +277,8 @@ def pack_static_scene(scene):
     spi = np.zeros((max(n_prims, 1), SP_I), np.int32)
     j = 0
     for i, ob in enumerate(scene):
-        sof[i] = ob["pos"] + (ob["s_r"], ob["c_r"], ob["inv_s"], ob["scale"])
+        sof[i] = ob["pos"] + (ob["s_r"], ob["c_r"], ob["inv_s"], ob["scale"],
+                              _bound_radius(ob))
         soi[i] = (j, len(ob["prims"]))
         for pr in ob["prims"]:
             p0, p1, p2 = pr["param"]
@@ -559,6 +579,61 @@ def render_frames_rows_reference(cam, words, obj, prim, pk):
             sh = _lambert(g, *n, s_r, c_r)
             _composite(g, closer, t_w, sh, [q(7), q(8), q(9)])
     return _to_u8(g["rgb"], pk["H"], pk["W"])
+
+
+# ---------------------------------------------------------------------------
+# Plain mirrors of the kernels' culls (tests and chip_smoke.py's bounds)
+# ---------------------------------------------------------------------------
+
+def row_kept(rows, pk):
+    """Plain mirror of the kernels' keep predicate (their per-block
+    prologue) on the rows of prepare_rows: bool [B, n], the objects each
+    env's pixel pass walks, in walk order (K3: the scene objects whose cull
+    flag is on; K4: the row slots whose active flag is on)."""
+    if pk["static"]:
+        return rows[2][:, 0:2 * pk["n_objs"]:2] > 0.5
+    return rows[2].reshape(rows[2].shape[0], -1, OBJ_F)[..., 7] > 0.5
+
+
+def row_bound_spheres(rows, pk):
+    """The kernels' world bounding spheres, in their float32 operations:
+    (centres f32 [B, n, 3], radii f32 [B, n]). A centre is the object's
+    position. K3's radius is the scene table's SO_RB; K4's comes from the
+    env's primitive rows: the largest |c| + p0 (sphere) or |c| + |(p0, p1,
+    p2)| (box) over the object's slots, padded ones included, times the
+    scale, plus VIEW_PAD."""
+    B = rows[0].shape[0]
+    if pk["static"]:
+        sof = pk["sof"][:pk["n_objs"]].to(rows[0].device)
+        return (sof[None, :, SO_X:SO_Z + 1].expand(B, -1, -1),
+                sof[None, :, SO_RB].expand(B, -1))
+    obj = rows[2].reshape(B, -1, OBJ_F)
+    prim = rows[3].reshape(B, obj.shape[1], P_MAX, PRIM_F)
+    q = lambda j: prim[..., j]
+    cl = torch.sqrt(q(1) * q(1) + q(2) * q(2) + q(3) * q(3))
+    reach = torch.where(q(0) > 0.5,
+                        torch.sqrt(q(4) * q(4) + q(5) * q(5) + q(6) * q(6)),
+                        q(4))
+    return obj[..., 0:3], (cl + reach).amax(-1) * obj[..., 6] + VIEW_PAD
+
+
+def row_sphere_pass(rows, pk):
+    """Plain mirror of the kernels' per-pixel bounding-sphere test, in
+    their float32 operations, on the rows' device: bool [B, n, P], True
+    where the object is kept (``row_kept``) and the pixel's ray meets its
+    bounding sphere (``row_bound_spheres``) or starts inside it. The
+    kernels skip the object's model ray and primitive tests on every other
+    pixel: none of its primitives can be hit there."""
+    cam = rows[0]
+    g = _ground(cam, rows[1], pk)
+    centre, rb = row_bound_spheres(rows, pk)
+    b = centre - cam[:, None, C_EYE:C_EYE + 3]
+    bx, by, bz = b[..., 0:1], b[..., 1:2], b[..., 2:3]     # [B, n, 1]
+    c2 = bx * bx + by * by + bz * bz - rb[..., None] * rb[..., None]
+    bq = (bx * g["dx"][:, None] + by * g["dy"][:, None]
+          + bz * g["dz"][:, None])
+    miss = (c2 > 0.0) & ((bq < 0.0) | (bq * bq < c2))
+    return ~miss & row_kept(rows, pk)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -3,13 +3,15 @@
 This system has no weights: what crosses between the two implementations
 is the compiled map and the env state (as the fused rollout's blob or as
 the vectorized API's EnvState). Every function takes plain numpy
-(``np.asarray`` of the JAX arrays), so nothing here imports JAX.
+(``np.asarray`` of the JAX arrays), so nothing here imports JAX. States
+land on the card unless the caller asks for the CPU (``device="cpu"``).
 """
 import dataclasses
 
 import numpy as np
 import torch
 
+from dtown_torch.device import resolve_device
 from dtown_torch.types import MAP_FIELDS, DynObjState, EnvState, MapArrays
 
 
@@ -22,12 +24,14 @@ def maps_from_numpy(fields: dict) -> MapArrays:
     return MapArrays(**{f: np.asarray(fields[f]) for f in MAP_FIELDS})
 
 
-def env_states_from_numpy(fields, device="cpu") -> EnvState:
+def env_states_from_numpy(fields, device="cuda") -> EnvState:
     """The port's batched EnvState from the JAX package's vmapped EnvState:
     ``fields`` has the EnvState field names as attributes (and ``dyn`` the
     DynObjState ones), each a [B, ...] array that np.asarray takes. The
-    PRNG key ``rng`` has no counterpart and is dropped."""
-    t = lambda a: torch.tensor(np.asarray(a), device=device)
+    PRNG key ``rng`` has no counterpart and is dropped. Raises without
+    CUDA unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    t = lambda a: torch.tensor(np.asarray(a), device=dev)
     dyn = DynObjState(**{f.name: t(getattr(fields.dyn, f.name))
                          for f in dataclasses.fields(DynObjState)})
     return EnvState(dyn=dyn, **{
@@ -35,10 +39,12 @@ def env_states_from_numpy(fields, device="cpu") -> EnvState:
         for f in dataclasses.fields(EnvState) if f.name != "dyn"})
 
 
-def blob_from_numpy(a, device="cpu") -> torch.Tensor:
-    """The JAX package's state blob f32 [NF, B] as a tensor on device."""
+def blob_from_numpy(a, device="cuda") -> torch.Tensor:
+    """The JAX package's state blob f32 [NF, B] as a tensor on device.
+    Raises without CUDA unless ``device="cpu"``."""
+    dev = resolve_device(device)
     a = np.asarray(a)
     if a.ndim != 2 or a.dtype != np.float32:
         raise ValueError(f"blob must be float32 [NF, B], got {a.shape} "
                          f"{a.dtype}")
-    return torch.tensor(a, device=device)
+    return torch.tensor(a, device=dev)

@@ -325,9 +325,9 @@ def step_batch(cfg, maps, states, actions, generator=None, pack=None,
 # Vectorized convenience API
 # ---------------------------------------------------------------------------
 
-def initial_map_indices(maps, num_envs: int, device=None):
-    """Per-env map index: env b on member b % n_maps of a stack (a sticky
-    round-robin curriculum), all zeros on a single map."""
+def initial_map_indices(maps, num_envs: int, device):
+    """Per-env map index on ``device``: env b on member b % n_maps of a
+    stack (a sticky round-robin curriculum), all zeros on a single map."""
     return torch.arange(num_envs, dtype=torch.int32,
                         device=device) % maps.n_maps
 

@@ -355,9 +355,42 @@ NPC_F = 8
 (NPC_KIND, NPC_X0, NPC_Z0, NPC_A0, NPC_HW, NPC_HL, NPC_RAD,
  NPC_WALK) = range(NPC_F)
 NPC_DUCKIE, NPC_BOT = 0, 1
-# NPCs whose state the kernel keeps in registers; past this count it reads
-# and writes their rows of the output blob in place (``npc_rows``)
-MAX_NPC = 8
+
+# The CUDA kernel's launch shape (csrc/state_kernel.cu G, THREADS and the
+# shared words): a group of K1_GROUP lanes steps one env and a block holds
+# up to K1_THREADS // K1_GROUP envs. Its shared memory holds the scalar
+# parameters and the DR ranges (K1_TABLE_WORDS); where they fit, the tile
+# words, the object table rows and column map of each object column
+# (K1_COLUMN_WORDS) and the NPC table (NPC_F a NPC); and per env its blob
+# column (the NPC state included), K1_ENV_WORDS words of scratch and a
+# score and a flag per object column.
+K1_GROUP = 8
+K1_THREADS = 128
+K1_ENV_WORDS = 126
+K1_TABLE_WORDS = 42
+K1_COLUMN_WORDS = 20
+K1_SMEM_MAX = 232448     # shared bytes a block can have on sm_90
+
+
+def launch_shape(nf: int, M: int, n_npc: int, n_words: int):
+    """(lanes per env, envs per block, shared bytes a block) of the CUDA
+    state kernel on a blob of nf rows, M object columns, n_npc NPCs and
+    n_words tile words: the most envs a block holds beside the staged
+    tables, or beside the scalar tables alone where the others do not fit
+    with one env. Raises where one env does not fit even so (past ~8,000
+    NPCs that are each an object column)."""
+    per_env = nf + K1_ENV_WORDS + 2 * M
+    staged = (K1_TABLE_WORDS + n_words + K1_COLUMN_WORDS * M
+              + NPC_F * n_npc)
+    for tables in (staged, K1_TABLE_WORDS):
+        E = min(K1_THREADS // K1_GROUP,
+                (K1_SMEM_MAX // 4 - tables) // per_env)
+        if E >= 1:
+            return K1_GROUP, E, 4 * (tables + E * per_env)
+    raise ValueError(f"the state kernel cannot hold one env of {nf} blob "
+                     f"rows and {M} object columns in shared memory "
+                     f"({4 * (tables + per_env)} > {K1_SMEM_MAX} bytes)")
+
 
 # hash-stream salts of the in-kernel draws: _u01(tag) of the DR redraw and
 # the four Irwin-Hall uniforms of a duckie's fresh walk speed
@@ -418,10 +451,9 @@ def device_tables(cfg, tables, device, nav=None):
     none, and its member map, 0 on a single map), ``drp`` float32 [2 * 13]
     (the DR redraw's lo and span per _u01 tag, Python-double folds rounded
     once), ``n_ok_v`` and ``n_driv`` int32 [n_maps] (each member's
-    accepted-bank and drivable-tile counts) and, with the Nav task (``nav``
-    = build_goal_table(maps)), ``goal`` [8, n_maps * goal_k]; and
-    ``npc_rows``, whether the kernel keeps the NPCs' state in the blob
-    rows (more than MAX_NPC NPCs) rather than in registers."""
+    accepted-bank and drivable-tile counts), ``ct_t`` (the curve table
+    transposed, [n_tiles, CT_F], the CUDA kernel's layout) and, with the Nav
+    task (``nav`` = build_goal_table(maps)), ``goal`` [8, n_maps * goal_k]."""
     dev = torch.device(device)
     npcs = tuple(tables["npcs"])
     dr = bool(cfg.domain_rand)
@@ -450,6 +482,8 @@ def device_tables(cfg, tables, device, nav=None):
     return dict(
         words=torch.as_tensor(tables["words"][0], device=dev),
         ct=torch.as_tensor(tables["ct"], device=dev),
+        ct_t=torch.as_tensor(np.ascontiguousarray(tables["ct"].T),
+                             device=dev),
         ot=torch.as_tensor(tables["ot"], device=dev),
         bank=torch.as_tensor(tables["bank"], device=dev),
         prm=torch.as_tensor(kernel_params(cfg, tables), device=dev),
@@ -461,12 +495,14 @@ def device_tables(cfg, tables, device, nav=None):
         frame_skip=int(cfg.frame_skip),
         use_wm=bool(cfg.use_wheel_model),
         auto_reset=bool(cfg.auto_reset),
-        npcs=npcs, n_npc=len(npcs), npc_rows=len(npcs) > MAX_NPC,
+        npcs=npcs, n_npc=len(npcs),
         domain_rand=dr,
         n_opt=len(tables["opt_cols"]) if dr else 0,
         n_maps=n_maps,
         t_pad=int(multi["t_pad"] if multi else tables["Hg"] * tables["Wg"]),
         npw=int(multi["npw"] if multi else 0),
+        # the tile words the kernel reads (its shared copy)
+        n_words=int(tables["n_words"]),
         n_ok_v=i32(n_ok_v), n_driv=i32(n_driv),
         nav=nav is not None,
         goal=(torch.as_tensor(nav["goal"], device=dev) if nav
@@ -934,7 +970,7 @@ def _lib():
     fn = lib.dtown_state_step
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 14
-                       + [ctypes.c_int] * 18 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 20 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -960,13 +996,14 @@ def state_step(blob, actions, dev):
         return state_step_reference(blob, actions[:, 0], actions[:, 1], dev)
     if blob.device.type != "cuda":
         raise ValueError(f"unsupported device {blob.device}")
+    G, E, smem = launch_shape(nf, dev["M"], dev["n_npc"], dev["n_words"])
     blob = blob.contiguous()
     actions = actions.contiguous()
     out = torch.empty_like(blob)
     fn = _lib()
     stream = torch.cuda.current_stream(blob.device).cuda_stream
     err = fn(blob.data_ptr(), actions.data_ptr(), out.data_ptr(),
-             dev["words"].data_ptr(), dev["ct"].data_ptr(),
+             dev["words"].data_ptr(), dev["ct_t"].data_ptr(),
              dev["ot"].data_ptr(), dev["bank"].data_ptr(),
              dev["prm"].data_ptr(), dev["npc"].data_ptr(),
              dev["colmap"].data_ptr(), dev["drp"].data_ptr(),
@@ -977,7 +1014,7 @@ def state_step(blob, actions, dev):
              int(dev["use_wm"]), int(dev["auto_reset"]), dev["n_npc"],
              int(dev["domain_rand"]), dev["n_opt"], dev["n_maps"],
              dev["t_pad"], dev["npw"], int(dev["nav"]), dev["goal_k"],
-             int(dev["npc_rows"]), stream)
+             G, E, smem, stream)
     if err != 0:
         raise RuntimeError(f"state_step kernel launch failed: CUDA error "
                            f"{err}")

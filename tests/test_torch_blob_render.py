@@ -37,7 +37,8 @@ def _states(jcfg, jmaps, B, seed):
 def _render(cfg, map_name, blob_np):
     plan = br.build_render_plan(cfg, load_map(map_name))
     pk = br.pack_plan(cfg, plan, "cpu")
-    planes = br.render_frames_from_blob(blob_from_numpy(blob_np), pk)
+    planes = br.render_frames_from_blob(
+        blob_from_numpy(blob_np, device="cpu"), pk)
     return planes.numpy().astype(int)
 
 

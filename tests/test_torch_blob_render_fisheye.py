@@ -144,7 +144,7 @@ def test_fused_rollout_fisheye_domain_rand_matches_reference():
     step_j = jax.jit(lambda b, a: j_step(b, states, a))
     _, t_step, _ = make_fused_rollout(cfg, load_map(map_name), B,
                                       device="cpu")
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     drb = sk.dr_base(0)
     light = [drb + k for k in (sk.DR_LX, sk.DR_LY, sk.DR_LZ)]
     other_dr = [f for f in range(drb, drb + sk.DR_ROWS) if f not in light]

@@ -92,7 +92,7 @@ def test_step_physics_matches_reference(map_name):
     jmaps = jmap_loader.load_map(map_name)
     maps = load_map(map_name).to("cpu")
     sj = _reset_j(jcfg, jmaps, B, 11)
-    st = env_states_from_numpy(sj)
+    st = env_states_from_numpy(sj, device="cpu")
     step_j = _step_j(jcfg, jmaps)
     rng = np.random.default_rng(5)
     for _ in range(8):
@@ -155,7 +155,7 @@ def test_auto_reset_at_max_steps():
     jmaps = jmap_loader.load_map("loop_pedestrians")
     maps = load_map("loop_pedestrians").to("cpu")
     sj = _reset_j(jcfg, jmaps, B, 3)
-    st = env_states_from_numpy(sj)
+    st = env_states_from_numpy(sj, device="cpu")
     step_j = _step_j(jcfg, jmaps)
     gen = torch.Generator().manual_seed(0)
     rng = np.random.default_rng(2)
@@ -192,7 +192,7 @@ def test_state_obs_matches_reference():
     jmaps = jmap_loader.load_map("udem1")
     maps = load_map("udem1").to("cpu")
     sj = _reset_j(jcfg, jmaps, B, 9)
-    st = env_states_from_numpy(sj)
+    st = env_states_from_numpy(sj, device="cpu")
     step_j = _step_j(jcfg, jmaps)
     rng = np.random.default_rng(4)
     for _ in range(4):

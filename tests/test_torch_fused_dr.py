@@ -36,7 +36,7 @@ def test_fused_rollout_npc_domain_rand_matches_reference():
     step_j = jax.jit(lambda b, a: j_step(b, states, a))
     _, t_step, _ = make_fused_rollout(cfg, load_map(map_name), B,
                                       device="cpu")
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     n_npc = len(sk.moving_npcs(load_map(map_name)))
     drb = sk.dr_base(n_npc)
     light = [drb + k for k in (sk.DR_LX, sk.DR_LY, sk.DR_LZ)]

@@ -49,7 +49,7 @@ def _check_frames(ours, ref):
 
 def _drive(j_step, t_step, blob_j, seed, check_obs):
     """N_STEPS of both fused steps from one blob with the same actions."""
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     rng = np.random.default_rng(seed)
     n_done = 0
     for _ in range(N_STEPS):
@@ -129,8 +129,9 @@ def test_fused_nav_rollout_goal_in_obs_matches_reference():
             cfg, load_map("small_loop"), B, goal_in_obs=True, device="cpu")
         act = np.tile(np.array([[0.6, 0.2]], np.float32), (B, 1))
         blob1_j, _, obs_j = step_j(blob_j, jnp.asarray(act))
-        blob1_t, _, obs_t = t_step(blob_from_numpy(np.asarray(blob_j)),
-                                   torch.from_numpy(act))
+        blob1_t, _, obs_t = t_step(
+            blob_from_numpy(np.asarray(blob_j), device="cpu"),
+            torch.from_numpy(act))
         check_rows(np.asarray(blob1_j), blob1_t.numpy())
         if obs_type == "rgb":
             planes, goal = obs_t

@@ -111,7 +111,7 @@ def test_pack_and_update_on_stacks_match_reference():
     jstates = jax.vmap(lambda k, i: jenv.reset(jcfg, jmaps, k, i))(keys, idx)
     goal = np.stack([np.arange(B) % 4, np.arange(B) % 3], -1)
     ref = np.asarray(jfe.pack_blob(jstates, jmaps, True, nav_goal=goal))
-    states = env_states_from_numpy(jstates)
+    states = env_states_from_numpy(jstates, device="cpu")
     rng = torch.zeros(B, dtype=torch.int64)
     ours = tfe.pack_blob(states, maps, True, rng,
                          nav_goal=torch.as_tensor(goal)).numpy()
@@ -123,8 +123,8 @@ def test_pack_and_update_on_stacks_match_reference():
     blob[sk.F_NPC_BASE:drb] += np.float32(0.25)
     blob[drb + sk.DR_OBJVIS] = 15.0 - blob[drb + sk.DR_OBJVIS]
     jnew = jfe.update_states_from_blob(jstates, blob, jmaps, True)
-    new = tfe.update_states_from_blob(states, blob_from_numpy(blob), maps,
-                                      True)
+    new = tfe.update_states_from_blob(
+        states, blob_from_numpy(blob, device="cpu"), maps, True)
     for f in ("pos", "angle", "walk_dist", "vel"):
         np.testing.assert_array_equal(getattr(new.dyn, f).numpy(),
                                       np.asarray(getattr(jnew.dyn, f)), f)

@@ -152,7 +152,7 @@ def test_triangle_render_matches_pallas_interpret(maps):
         jcfg, jmaps, b, jplan, interpret=True))(blob)).astype(int)
     cfg = EnvConfig(mesh_fidelity="triangles", **kw)
     pk = br.pack_plan(cfg, br.build_render_plan(cfg, tmaps), "cpu")
-    ours = br.render_frames_from_blob(blob_from_numpy(blob), pk)
+    ours = br.render_frames_from_blob(blob_from_numpy(blob, device="cpu"), pk)
     ours = ours.numpy().astype(int)
     assert ours.shape == ref.shape == (B, 3, 32, 128)
     diff = np.abs(ours - ref)
@@ -161,7 +161,8 @@ def test_triangle_render_matches_pallas_interpret(maps):
     # the triangles, not the boxes, drew the mesh: the red roof shows
     cfg_b = EnvConfig(**kw)
     pk_b = br.pack_plan(cfg_b, br.build_render_plan(cfg_b, tmaps), "cpu")
-    boxes = br.render_frames_from_blob(blob_from_numpy(blob), pk_b).numpy()
+    boxes = br.render_frames_from_blob(blob_from_numpy(blob, device="cpu"),
+                                       pk_b).numpy()
     assert (boxes.astype(int) != ours).mean() > 0.005
     r, g, b = (ours[0, c].reshape(-1) for c in range(3))
     assert ((r > 90) & (r > 1.5 * g) & (r > 1.5 * b)).sum() > 3
@@ -180,7 +181,7 @@ def test_fused_rollout_triangles_matches_reference(maps):
     step_j = jax.jit(lambda b, a: j_step(b, None, a))
     _, t_step, _ = make_fused_rollout(cfg, tmaps, B, device="cpu")
     assert t_step.pack["tri"]
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     rng = np.random.default_rng(9)
     for _ in range(3):
         act = np.stack([rng.uniform(0.0, 0.3, B),
@@ -208,15 +209,16 @@ def test_step_path_renders_registered_kind_as_boxes(maps):
         jcfg, jmaps, s, interpret=True))(sj)).astype(int)
     pk = rr.pack_row_scene(cfg, tmaps)
     assert pk["static"] and pk["n_objs"] == 1
-    ours = rr.render_frames_rows(cfg, tmaps, env_states_from_numpy(sj),
-                                 pack=pk).numpy().astype(int)
+    ours = rr.render_frames_rows(
+        cfg, tmaps, env_states_from_numpy(sj, device="cpu"),
+        pack=pk).numpy().astype(int)
     assert ours.shape == ref.shape == (B, 3, 8, 128)
     diff = np.abs(ours - ref)
     assert diff.mean() <= 0.05, diff.mean()
     assert (diff > 2).mean() <= 1e-3
     # the object is in the frames: culled in every env, they differ
-    cam, words, flags = rr.prepare_rows(cfg, tmaps,
-                                        env_states_from_numpy(sj), pk)
+    cam, words, flags = rr.prepare_rows(
+        cfg, tmaps, env_states_from_numpy(sj, device="cpu"), pk)
     assert (flags[:, 0] > 0.5).any()
     bare = rr.row_render_static(cam, words, torch.zeros_like(flags), pk)
     assert (bare.numpy().astype(int) != ours).any()

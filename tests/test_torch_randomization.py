@@ -129,7 +129,7 @@ def test_step_path_under_domain_randomization():
     sj = jax.jit(jax.vmap(lambda k: jenv.reset(jcfg, jmaps, k)))(keys)
     step_j = jax.jit(lambda s, a: jenv.step_batch(jcfg, jmaps, s, a))
     _, _, _, v_step = dtown_torch.make_vec("udem1", B, device="cpu", **kw)
-    st = env_states_from_numpy(sj)
+    st = env_states_from_numpy(sj, device="cpu")
     assert float(st.cam_fov_y.std()) > 0.5
     rng = np.random.default_rng(2)
     for _ in range(3):

@@ -32,7 +32,7 @@ def test_rollout_matches_reference():
     jmaps = jmap_loader.load_map("loop_obstacles")
     j_init, _, j_rollout = j_make_fused_rollout(jcfg, jmaps, B)
     blob_j, states = j_init(jax.random.PRNGKey(0))
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     act = np.tile(np.array([[0.4, 0.1]], np.float32), (B, 1))
 
     _, _, rollout = make_fused_rollout(cfg, load_map("loop_obstacles"), B,

@@ -94,8 +94,8 @@ def _render_both(map_name, **kw):
     ref = jax.jit(lambda s: jpr.render_frames_pallas(
         jcfg, jmaps, s, interpret=True))(sj)
     pk = rr.pack_row_scene(cfg, maps)
-    ours = rr.render_frames_rows(cfg, maps, env_states_from_numpy(sj),
-                                 pack=pk)
+    ours = rr.render_frames_rows(
+        cfg, maps, env_states_from_numpy(sj, device="cpu"), pack=pk)
     return _compare(ours, ref), pk, (cfg, maps, sj)
 
 
@@ -131,7 +131,7 @@ def test_render_objects_false_still_draws_objects():
         jcfg, jmaps, s, e))(sj, eye)
     assert (np.asarray(obj_j).reshape(B, -1, rr.OBJ_F)[..., 7] > 0.5).any()
     # the same frames without objects (every object row inactive)
-    st = env_states_from_numpy(sj)
+    st = env_states_from_numpy(sj, device="cpu")
     cam, words, obj, prim = rr.prepare_rows(cfg, maps, st, pk)
     assert (obj.reshape(B, -1, rr.OBJ_F)[..., 7] > 0.5).any()
     obj = obj.reshape(B, -1, rr.OBJ_F).clone()
@@ -149,7 +149,7 @@ def test_rows_match_reference(map_name):
     jmaps = jmap_loader.load_map(map_name)
     maps = load_map(map_name).to("cpu")
     sj = _posed_states(jcfg, jmaps, 2)
-    st = env_states_from_numpy(sj)
+    st = env_states_from_numpy(sj, device="cpu")
     cam_j, eye_j = jax.vmap(lambda s: jpr.prepare_camera_row(jcfg, s))(sj)
     cam_t, eye_t = rr.prepare_camera_row(cfg, st)
     np.testing.assert_allclose(cam_t.numpy(), np.asarray(cam_j), rtol=0,

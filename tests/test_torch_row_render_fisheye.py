@@ -58,8 +58,8 @@ def test_fisheye_row_render_matches_reference(map_name, static):
         lambda s: jenv.render_obs(jcfg, jmaps, s)))(sj)).astype(int)
     pk = rr.pack_row_scene(cfg, maps)
     assert pk["static"] == static
-    planes = rr.render_frames_rows(cfg, maps, env_states_from_numpy(sj),
-                                   pack=pk)
+    planes = rr.render_frames_rows(
+        cfg, maps, env_states_from_numpy(sj, device="cpu"), pack=pk)
     ours = rr.planes_to_nhwc(cfg, planes).numpy().astype(int)
     assert ours.shape == ref.shape == (B, SIZE, SIZE, 3)
     diff = np.abs(ours - ref)
@@ -68,7 +68,7 @@ def test_fisheye_row_render_matches_reference(map_name, static):
     assert ours.std() > 5
     flat = rr.render_frames_rows(
         EnvConfig(camera_width=SIZE, camera_height=SIZE, renderer="pallas"),
-        maps, env_states_from_numpy(sj))
+        maps, env_states_from_numpy(sj, device="cpu"))
     assert (flat != planes).float().mean() > 0.1
 
 

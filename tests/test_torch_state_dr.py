@@ -77,8 +77,9 @@ def state_obs_run():
     obs0_j = jfe.obs_from_blob(jcfg, jmaps, blob_j, states)
     _, t_step, _ = make_fused_rollout(cfg, load_map("loop_pedestrians"), B,
                                       device="cpu")
-    blob1_t, out_t, obs_t = t_step(blob_from_numpy(np.asarray(blob_j)),
-                                   torch.from_numpy(act))
+    blob1_t, out_t, obs_t = t_step(
+        blob_from_numpy(np.asarray(blob_j), device="cpu"),
+        torch.from_numpy(act))
     return dict(cfg=cfg, blob_j=np.asarray(blob_j),
                 blob1_j=np.asarray(blob1_j), obs_j=np.asarray(obs_j),
                 obs0_j=np.asarray(obs0_j), blob1_t=blob1_t.numpy(),

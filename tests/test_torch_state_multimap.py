@@ -66,7 +66,7 @@ def run_stack(names, B, seed=0, n_steps=N_STEPS, nav=False, **kw):
     maps = stack_maps(names)
     dev = sk.device_tables(cfg, sk.build_tables(cfg, maps), "cpu",
                            sk.build_goal_table(maps) if nav else None)
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     rng = np.random.default_rng(seed + 1)
     out_j, out_t = [np.asarray(blob_j)], [blob_t.numpy().copy()]
     for _ in range(n_steps):

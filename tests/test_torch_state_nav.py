@@ -78,8 +78,8 @@ class NavRun:
     def step(self, blob, act):
         """One step of both sides from the same numpy blob."""
         bj = np.asarray(self.step_j(jnp.asarray(blob), jnp.asarray(act)))
-        bt = sk.state_step(blob_from_numpy(blob), torch.from_numpy(act),
-                           self.dev).numpy()
+        bt = sk.state_step(blob_from_numpy(blob, device="cpu"),
+                           torch.from_numpy(act), self.dev).numpy()
         return bj, bt
 
 
@@ -136,9 +136,11 @@ def test_parked_goals_give_the_plain_rewards(nav_run):
     rng = np.random.default_rng(2)
     for _ in range(3):
         act = torch.from_numpy(_actions(rng))
-        nav_out = sk.state_step(blob_from_numpy(blob), act, r.dev).numpy()
-        base = sk.state_step(blob_from_numpy(blob[:plain["nf"]].copy()),
-                             act, plain).numpy()
+        nav_out = sk.state_step(blob_from_numpy(blob, device="cpu"), act,
+                                r.dev).numpy()
+        base = sk.state_step(
+            blob_from_numpy(blob[:plain["nf"]].copy(), device="cpu"), act,
+            plain).numpy()
         rows = [f for f in range(r.navb) if f != sk.F_REWARD]
         np.testing.assert_array_equal(nav_out[rows], base[rows])
         if coef:
@@ -174,8 +176,9 @@ def test_goal_on_the_current_tile_is_reached(nav_run):
                                   bj[r.navb:r.navb + 2])
     assert (bt[sk.F_DONE] > 0.5).all() and (bt[sk.F_STEP] == 0.0).all()
     plain = sk.device_tables(r.cfg, sk.build_tables(r.cfg, r.maps), "cpu")
-    base = sk.state_step(blob_from_numpy(blob[:plain["nf"]].copy()),
-                         torch.from_numpy(act), plain).numpy()
+    base = sk.state_step(
+        blob_from_numpy(blob[:plain["nf"]].copy(), device="cpu"),
+        torch.from_numpy(act), plain).numpy()
     live = base[sk.F_DONE] < 0.5
     assert live.all()
     bonus = bt[sk.F_REWARD] - base[sk.F_REWARD]
@@ -206,8 +209,9 @@ def test_nav_observations_match_reference():
         blob_j, states, jnp.asarray(act))
     _, t_step, _ = make_fused_nav_rollout(cfg, maps, B, goal_in_obs=True,
                                           device="cpu")
-    blob1_t, _, obs_t = t_step(blob_from_numpy(np.asarray(blob_j)),
-                               torch.from_numpy(act))
+    blob1_t, _, obs_t = t_step(
+        blob_from_numpy(np.asarray(blob_j), device="cpu"),
+        torch.from_numpy(act))
     check_rows(np.asarray(blob1_j), blob1_t.numpy())
     assert obs_t.shape == (B, 14)
     np.testing.assert_allclose(obs_t.numpy(), np.asarray(obs_j), rtol=0,
@@ -219,7 +223,7 @@ def test_nav_observations_match_reference():
     blob_s, _ = j_init_s(jax.random.PRNGKey(4))
     ref = np.stack([np.asarray(c) for c in jfe.nav_goal_features_from_blob(
         jcfg, jstack, blob_s)], -1)
-    blob_s = blob_from_numpy(np.asarray(blob_s))
+    blob_s = blob_from_numpy(np.asarray(blob_s), device="cpu")
     ours = torch.stack(tfe.nav_goal_features_from_blob(cfg, stack, blob_s),
                        -1).numpy()
     np.testing.assert_allclose(ours, ref, rtol=0, atol=FEATURE_ATOL)

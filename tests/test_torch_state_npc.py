@@ -51,7 +51,7 @@ def run_both(map_name, n_steps=N_STEPS, seed=0, **kw):
         jcfg, jmaps, b, a, jtables, interpret=True))
     dev = sk.device_tables(cfg, sk.build_tables(cfg, load_map(map_name)),
                            "cpu")
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     rng = np.random.default_rng(seed + 1)
     out_j, out_t = [np.asarray(blob_j)], [blob_t.numpy().copy()]
     for _ in range(n_steps):

@@ -3,9 +3,10 @@ state-obs rollout (make_fused_rollout on the CPU, the plain torch version
 of the state kernel) on a stack whose members hold 2 + 3 + 4 = 9 NPCs of
 both kinds, vs the JAX package's Pallas state kernel in interpret mode,
 from the same initial blob with the same actions through a forced
-auto-reset (max_steps=3). Past 8 NPCs the CUDA kernel keeps the NPC state
-in the blob rows instead of registers (the wrapper's ``npc_rows`` flag);
-chip_smoke.py holds it against the same plain version on the card."""
+auto-reset (max_steps=3). The CUDA kernel keeps any number of NPCs' state
+in its shared-memory copy of the blob rows (tests/test_torch_state_launch.py
+checks that the launch fits); chip_smoke.py holds it against the same
+plain version on the card."""
 import numpy as np
 import pytest
 import torch
@@ -18,7 +19,7 @@ from dtown import types as jtypes
 from dtown.ops import state_kernel as jsk
 from dtown.ops.fused_env import make_fused_rollout as j_make_fused_rollout
 
-from dtown_torch import EnvConfig, load_map, make_fused_rollout, stack_maps
+from dtown_torch import EnvConfig, make_fused_rollout, stack_maps
 from dtown_torch.convert import blob_from_numpy
 from dtown_torch.ops import fused_env as fe
 from dtown_torch.ops import state_kernel as sk
@@ -53,7 +54,7 @@ def run():
     _, fused_step, _ = make_fused_rollout(
         EnvConfig(obs_type="state", max_steps=3), stack_maps(NAMES), B,
         device="cpu")
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     rng = np.random.default_rng(1)
     out_j, out_t, obs_t = [], [], []
     for _ in range(N_STEPS):
@@ -69,7 +70,7 @@ def run():
 
 def test_nine_npcs_match_pallas_interpret(run):
     out_j, out_t, obs_t, dev = run
-    assert dev["n_npc"] == 9 and dev["npc_rows"]
+    assert dev["n_npc"] == 9
     assert {d["kind"] for d in dev["npcs"]} == {"duckie", "duckiebot"}
     assert [d["map"] for d in dev["npcs"]] == [0] * 2 + [1] * 3 + [2] * 4
     drb = sk.dr_base(dev["n_npc"])
@@ -99,17 +100,3 @@ def test_npcs_replaced_at_the_reset(run):
                                       np.float32(npc["x0"]))
         np.testing.assert_array_equal(out_t[2][base + 3], 0.0)
 
-
-@pytest.mark.parametrize("names, n_npc, npc_rows", [
-    (["town_dyn_duckiebots", "town_dyn_duckiebots"], 8, False),
-    (["loop_pedestrians"], 3, False),
-    (NAMES, 9, True),
-])
-def test_npc_rows_flag(names, n_npc, npc_rows):
-    """Up to 8 NPCs the wrapper passes npc_rows=0, so the kernel keeps the
-    register specialisation; past 8 it passes 1."""
-    cfg = EnvConfig(obs_type="state")
-    maps = stack_maps(names) if len(names) > 1 else load_map(names[0])
-    dev = sk.device_tables(cfg, sk.build_tables(cfg, maps), "cpu")
-    assert dev["n_npc"] == n_npc
-    assert dev["npc_rows"] is npc_rows

@@ -65,7 +65,7 @@ def trajectories():
 
     dev = sk.device_tables(cfg, sk.build_tables(cfg, load_map(
         "loop_obstacles")), "cpu")
-    blob_t = blob_from_numpy(np.asarray(blob_j))
+    blob_t = blob_from_numpy(np.asarray(blob_j), device="cpu")
     rng = np.random.default_rng(1)
     out_j, out_t = [], []
     for _ in range(n):

@@ -5,8 +5,9 @@ holds each against its plain torch version, drives the fused rollout
 grayscale and state observations, then stacks of maps and the Nav task,
 then fisheye, the reference's native 640x480 and triangle-mesh objects)
 and the vectorized step API (make_vec) on a static-scene map, a row-fed
-map and a domain-randomized map, then both with fisheye, runs the
-float32/bfloat16 throughput probe, and prints what it measured.
+map and a domain-randomized map, then both with fisheye, trains the PPO
+learner (dtown_torch.learn) on the fused rollout and the step path, runs
+the float32/bfloat16 throughput probe, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -84,7 +85,28 @@ Phases (any failure exits non-zero and prints no result):
      objects, half facing one (max |diff| 0), the plain versions' times
      and the bounds, counted by the kernels' own culls (row_raster.
      row_kept, row_sphere_pass) like the blob render's;
-  8. the throughput probe (K5, python -m dtown_torch.probes) in float32
+  8. the PPO learner (dtown_torch.learn.make_ppo): (a) one fused
+     iteration on loop_obstacles, 64 envs 32x32, rollout 4, 2 epochs x 2
+     minibatches, on the card and on the CPU from the same parameters,
+     blob, noise and permutations (dones equal, rewards within 1e-3, loss
+     within 1e-2 relative, each parameter's update within cosine 0.9);
+     (b) the bench's default configuration, loop_obstacles 4096 envs 64x64
+     RGB, NatureCNN, PPOConfig() (rollout 128, 4 epochs x 8 minibatches of
+     65,536): one
+     warm-up and three timed iterations (CUDA events: rollout, update,
+     training env-steps/s), the state kernel and the blob render 128
+     launches each an iteration, a profiler window of one rollout (their
+     device ms, idle share) and of one update, peak memory, the policy's
+     FLOPs counted from its layer shapes and train_mfu against the dense
+     bf16 peak, then both kernels against their plain versions on the
+     last blob; (c) one Nav iteration on nav_stack (stack3's maps, 4096
+     envs, goal in the observation, rollout 16: goal_frac); (d) a
+     learning check, state observations on small_loop, 1024 envs, rollout
+     32, 30 iterations, with tests/test_learning.py's bars; (e) one
+     step-path iteration (make_ppo(fused=False), renderer="pallas",
+     loop_obstacles 4096 envs 64x64, rollout 32) after a warm-up, with its
+     env-steps/s, the static-scene row render launched;
+  9. the throughput probe (K5, python -m dtown_torch.probes) in float32
      and bfloat16 at the reference probe's [4096, 32, 128], 256 steps:
      the probe's loop (its launches counted), the kernel vs its plain
      version on seeded inputs (max |diff| 0), the device time per launch
@@ -107,6 +129,8 @@ PEAK_F32 = 67e12
 # second. Integer, compare and select instructions issue on lanes no wider,
 # so counted instructions over this rate is still the least time.
 PEAK_INSTR = PEAK_F32 / 2
+# dense bf16 tensor-core FLOP/s (the same datasheet): the learner's share
+PEAK_BF16 = 989e12
 
 # Instruction counts per unit of work, counted by hand from the kernel
 # sources (arithmetic, compare and select instructions; a sqrt, divide or
@@ -280,13 +304,14 @@ def cuda_ms(fn, n):
 FLOOR_KERNEL = "lgamma"
 
 
-def profile_window(window, kernels, keys=False, floor=False):
+def profile_window(window, kernels, keys=False, floor=False, top=0):
     """torch.profiler over one call of window(). Returns (device ms per
     launch of each named kernel found, device ms of all kernels, window
     ms), and with keys the names of the trace's device events. With floor,
     32 one-element ops (FLOOR_KERNEL) follow the window in the same trace,
     outside its time and busy sum, and their device ms per launch is
-    returned as the launch floor under "launch_floor"."""
+    returned as the launch floor under "launch_floor". With top, the top
+    device kernels by time are printed (ms in all, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,7 +326,7 @@ def profile_window(window, kernels, keys=False, floor=False):
         for _ in range(32 if floor else 0):
             one.lgamma_()
         torch.cuda.synchronize()
-    per, busy, names = {}, 0.0, []
+    per, busy, names, totals = {}, 0.0, [], []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host events; kernels are the device-side entries
@@ -312,9 +337,12 @@ def profile_window(window, kernels, keys=False, floor=False):
             continue
         busy += t
         names.append(ev.key)
+        totals.append((t, ev.count, ev.key[:60]))
         for k in kernels:
             if k in ev.key and ev.count:
                 per[k] = t / ev.count
+    for t, n, key in sorted(totals, reverse=True)[:top]:
+        print(f"    {t:10.3f} ms {n:6d}x {key}")
     if keys:
         return per, busy, start.elapsed_time(end), names
     return per, busy, start.elapsed_time(end)
@@ -960,6 +988,71 @@ def render_plain(blob, pk):
         blob[:, i:i + n].contiguous(), pk) for i in range(0, B, n)])
 
 
+def held_rows(tag, blob, actions, st, pk, launches, dev_ms, k1_err=0.0,
+              k2_err=0.0):
+    """The state kernel (and, with a render plan ``pk``, the blob render)
+    against its plain version on ``blob`` stepped by ``actions`` (max
+    |diff| 0), the plain versions' times and the bounds from these inputs:
+    the kernels' rows of the JSON line, with the launches and device ms of
+    the caller's run; k1_err / k2_err are the caller's earlier checks.
+    "bench" keeps the bare kernel names."""
+    import torch
+    from dtown_torch.ops import state_kernel as sk
+    from dtown_torch.render import blob_raster as br
+
+    B = blob.shape[1]
+    act0, act1 = actions[:, 0].contiguous(), actions[:, 1].contiguous()
+    k1_plain, blob2 = cuda_ms(
+        lambda: sk.state_step_reference(blob, act0, act1, st), 3)
+    out = sk.state_step(blob, actions, st)
+    torch.cuda.synchronize()
+    k1_last = k1_diff(out, blob2, f"{tag} (last blob)")
+    print(f"{tag}: state kernel vs plain on the run's last blob: max "
+          f"|diff| {k1_last:.3g}")
+    k1_err = max(k1_err, k1_last)
+    del out
+    k1_b = bound(k1_bytes(st, blob.shape[0], B), k1_ops(blob2, st))
+    sfx = "" if tag == "bench" else f"[{tag}]"
+    rows = [dict(name="state_step" + sfx, route="cuda",
+                 source="dtown_torch/csrc/state_kernel.cu",
+                 replaces="dtown/ops/state_kernel.py:203",
+                 launches=launches["state_step"], max_abs_err=k1_err,
+                 ms=dev_ms["state_step_kernel"], plain_ms=k1_plain,
+                 bound_ms=k1_b[0], bound_by=k1_b[1], library_ms=None)]
+    print(f"{tag}: state kernel {dev_ms['state_step_kernel']:.5f} ms/launch"
+          f" (plain {k1_plain:.4f} ms), bound {k1_b[0]:.6f} ms by "
+          f"{k1_b[1]}")
+    if pk is not None:
+        P = pk["H"] * pk["W"]
+        k2_plain, img_r = cuda_ms(lambda: render_plain(blob, pk), 2)
+        img_k = br.render_frames_from_blob(blob, pk)
+        k2_last = float((img_k.int() - img_r.int()).abs().max())
+        del img_k, img_r
+        print(f"{tag}: blob render vs plain on the run's last blob: "
+              f"max |diff| {k2_last:.0f}")
+        if k2_last > 0:
+            raise AssertionError(f"{tag}: blob render kernel differs from "
+                                 f"its plain version on the last blob")
+        k2_err = max(k2_err, k2_last)
+        k2_b = bound(k2_bytes(pk, B, P), k2_ops(blob, pk, P))
+        # the same bound without the view cull (what the pixels need when
+        # no object behind the camera is skipped)
+        k2_nv = bound(k2_bytes(pk, B, P), k2_ops(blob, dict(pk, view=False),
+                                                 P))
+        rows.append(dict(name="blob_render" + sfx, route="cuda",
+                         source="dtown_torch/csrc/blob_render.cu",
+                         replaces="dtown/render/blob_raster.py:574",
+                         launches=launches["blob_render"],
+                         max_abs_err=k2_err, ms=dev_ms["blob_render_kernel"],
+                         plain_ms=k2_plain, bound_ms=k2_b[0],
+                         bound_by=k2_b[1], library_ms=None))
+        print(f"{tag}: blob render {dev_ms['blob_render_kernel']:.5f} "
+              f"ms/launch (plain {k2_plain:.4f} ms), bound {k2_b[0]:.6f} "
+              f"ms by {k2_b[1]} (view cull {'on' if pk['view'] else 'off'}"
+              f"; without it {k2_nv[0]:.6f} ms)")
+    return rows
+
+
 def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
                 check=None, **kw):
     """One configuration of the fused rollout on the card: the state
@@ -1107,55 +1200,8 @@ def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
                              f"{set(names) - dev_ms.keys()}")
     # -- the kernels against the plain versions it times, on the timed
     # run's last blob; then the bounds
-    act0, act1 = actions[:, 0].contiguous(), actions[:, 1].contiguous()
-    k1_plain, blob2 = cuda_ms(
-        lambda: sk.state_step_reference(blob, act0, act1, st), 3)
-    out = sk.state_step(blob, actions, st)
-    torch.cuda.synchronize()
-    k1_last = k1_diff(out, blob2, f"{tag} (timed blob)")
-    print(f"{tag}: state kernel vs plain on the timed run's last blob: max "
-          f"|diff| {k1_last:.3g}")
-    k1_err = max(k1_err, k1_last)
-    del out
-    k1_b = bound(k1_bytes(st, blob.shape[0], B), k1_ops(blob2, st))
-    sfx = "" if tag == "bench" else f"[{tag}]"
-    rows = [dict(name="state_step" + sfx, route="cuda",
-                 source="dtown_torch/csrc/state_kernel.cu",
-                 replaces="dtown/ops/state_kernel.py:203",
-                 launches=launches["state_step"], max_abs_err=k1_err,
-                 ms=dev_ms["state_step_kernel"], plain_ms=k1_plain,
-                 bound_ms=k1_b[0], bound_by=k1_b[1], library_ms=None)]
-    print(f"{tag}: state kernel {dev_ms['state_step_kernel']:.5f} ms/launch"
-          f" (plain {k1_plain:.4f} ms), bound {k1_b[0]:.6f} ms by "
-          f"{k1_b[1]}")
-    if not state_only:
-        P = W * H
-        k2_plain, img_r = cuda_ms(lambda: render_plain(blob, pk), 2)
-        img_k = br.render_frames_from_blob(blob, pk)
-        k2_last = float((img_k.int() - img_r.int()).abs().max())
-        del img_k, img_r
-        print(f"{tag}: blob render vs plain on the timed run's last blob: "
-              f"max |diff| {k2_last:.0f}")
-        if k2_last > 0:
-            raise AssertionError(f"{tag}: blob render kernel differs from "
-                                 f"its plain version on the timed blob")
-        k2_err = max(k2_err, k2_last)
-        k2_b = bound(k2_bytes(pk, B, P), k2_ops(blob, pk, P))
-        # the same bound without the view cull (what the pixels need when
-        # no object behind the camera is skipped)
-        k2_nv = bound(k2_bytes(pk, B, P), k2_ops(blob, dict(pk, view=False),
-                                                 P))
-        rows.append(dict(name="blob_render" + sfx, route="cuda",
-                         source="dtown_torch/csrc/blob_render.cu",
-                         replaces="dtown/render/blob_raster.py:574",
-                         launches=launches["blob_render"],
-                         max_abs_err=k2_err, ms=dev_ms["blob_render_kernel"],
-                         plain_ms=k2_plain, bound_ms=k2_b[0],
-                         bound_by=k2_b[1], library_ms=None))
-        print(f"{tag}: blob render {dev_ms['blob_render_kernel']:.5f} "
-              f"ms/launch (plain {k2_plain:.4f} ms), bound {k2_b[0]:.6f} "
-              f"ms by {k2_b[1]} (view cull {'on' if pk['view'] else 'off'}"
-              f"; without it {k2_nv[0]:.6f} ms)")
+    rows = held_rows(tag, blob, actions, st, pk, launches, dev_ms, k1_err,
+                     k2_err)
     torch.cuda.empty_cache()
     return rows
 
@@ -1230,6 +1276,300 @@ def tri_pixels_won(maps, dev):
         raise AssertionError("tri_mesh: triangles missing or the kernel "
                              "differs from its plain version")
     return won
+
+
+def policy_flops(net, obs):
+    """Forward FLOPs per env of the policy on one observation, counted
+    from the layers' shapes: 2 x the multiply-adds of each convolution
+    (output pixels x k x k x C_in x C_out) and dense layer (in x out);
+    biases, activations and the pool are left out."""
+    import torch
+    from dtown_torch.learn import networks
+
+    count = [0]
+
+    def hook(mod, inp, out):
+        w = mod.weight
+        per_out = w[0].numel()  # k x k x C_in, or in
+        rows = out.shape[0] if out.dim() > 1 else 1
+        count[0] += 2 * per_out * out.numel() // rows
+
+    hs = [m.register_forward_hook(hook) for m in net.modules()
+          if isinstance(m, (networks.Conv, networks.Dense))]
+    with torch.no_grad():
+        net(obs)
+    for h in hs:
+        h.remove()
+    return count[0]
+
+
+def ppo_card_vs_cpu(dev):
+    """One fused PPO iteration on loop_obstacles, 64 envs 32x32, rollout
+    4, 2 epochs x 2 minibatches, on the card and on the CPU from the same
+    parameters, blob, noise and permutations. Trajectory dones equal,
+    rewards within 1e-3; loss within 1e-2 relative (+1e-4); each updated
+    tensor's change within cosine 0.9 of the CPU's (cuDNN's bf16 against
+    the CPU's: Adam's first steps turn bf16 noise in a small gradient into
+    a +-lr step)."""
+    import torch
+    import dtown_torch
+    from dtown_torch.learn import ppo as P
+    from dtown_torch.learn.networks import ActorCritic
+
+    cfg = dtown_torch.EnvConfig(camera_width=32, camera_height=32)
+    maps = dtown_torch.load_map("loop_obstacles")
+    ppo = P.PPOConfig(rollout_len=4, epochs=2, minibatches=2)
+    B = 64
+    res, start = {}, None
+    for d in ("cpu", dev):
+        init, train = P.make_ppo(cfg, maps, B, ppo, fused=True, device=d)
+        if start is None:
+            ts = init(torch.Generator().manual_seed(5))
+            g = torch.Generator().manual_seed(6)
+            start = (ts.net.state_dict(), ts.env_states,
+                     P.obs_shape(train.obs_from(ts.env_states[1])),
+                     torch.randn((4, B, 2), generator=g),
+                     torch.stack([torch.randperm(4 * B, generator=g)
+                                  for _ in range(2)]))
+        sd, (blob, raw), shape, noise, perms = start
+        net = ActorCritic(shape, device=d)
+        net.load_state_dict(sd)
+        ts = P.TrainState(net, P.make_optimizer(net, ppo),
+                          (blob.to(d), raw.to(d)), None)
+        ts, traj, last_value = train.rollout(ts, noise.to(d))
+        adv, ret = train.gae(traj, last_value)
+        ts, losses = train.update(ts, traj, adv, ret, perms.to(d))
+        res[str(d)] = (traj["done"].cpu(), traj["reward"].cpu(),
+                       float(losses.mean()),
+                       {k: v.cpu() for k, v in ts.net.state_dict().items()})
+    (dg, rg, lg, pg), (dc, rc, lc, pc) = res[str(dev)], res["cpu"]
+    rew = float((rg - rc).abs().max())
+    cos, pmax = 1.0, 0.0
+    for k, p0 in start[0].items():
+        a = (pg[k] - p0.cpu()).flatten()
+        b = (pc[k] - p0.cpu()).flatten()
+        pmax = max(pmax, float((a - b).abs().max()))
+        if float(b.norm()) > 0:
+            cos = min(cos, float(a @ b / (a.norm() * b.norm())))
+    print(f"train (a) fused PPO card vs cpu (64 envs 32x32, rollout 4, 2x2):"
+          f" dones equal {torch.equal(dg, dc)}, reward max |diff| {rew:.3g}"
+          f" (bar 1e-3), loss {lg:.6g} vs {lc:.6g} (bar 1e-2 relative + "
+          f"1e-4), updated parameters max |diff| {pmax:.3g}, least cosine "
+          f"of a tensor's update {cos:.4f} (bar 0.9)")
+    if not (torch.equal(dg, dc) and rew <= 1e-3
+            and abs(lg - lc) <= 1e-2 * abs(lc) + 1e-4 and cos >= 0.9):
+        raise AssertionError("fused PPO on the card disagrees with the CPU")
+
+
+def timed_iteration(train, ts, gen, ppo, B, dev):
+    """One PPO iteration through its pieces, as train_step draws them, with
+    CUDA events at its edges: (ts, traj, losses, rollout ms, update ms,
+    iteration ms)."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    T = ppo.rollout_len
+    noise = torch.randn((T, B, 2), generator=gen, device=dev)
+    perms = torch.stack([torch.randperm(T * B, generator=gen, device=dev)
+                         for _ in range(ppo.epochs)])
+    ev[1].record()
+    ts, traj, last_value = train.rollout(ts, noise)
+    adv, ret = train.gae(traj, last_value)
+    ev[2].record()
+    ts, losses = train.update(ts, traj, adv, ret, perms)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return (ts, traj, losses, ev[1].elapsed_time(ev[2]),
+            ev[2].elapsed_time(ev[3]), ev[0].elapsed_time(ev[3]))
+
+
+def train_bench(dev, smi):
+    """(b) Fused PPO at the bench's default: loop_obstacles, 4096 envs, 64x64
+    RGB, NatureCNN, PPOConfig() (rollout 128, 4 epochs x 8 minibatches of
+    65,536). One warm-up iteration, three timed; a profiler window of one
+    rollout (K1 and K2) and one of one update; the kernels against their
+    plain versions on the last blob. Returns the kernels' rows."""
+    import torch
+    import dtown_torch
+    from dtown_torch.learn import ppo as P
+
+    B = 4096
+    cfg = dtown_torch.EnvConfig(camera_width=64, camera_height=64)
+    ppo = P.PPOConfig()
+    init, train = P.make_ppo(cfg, dtown_torch.load_map("loop_obstacles"), B,
+                             ppo, fused=True, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ts = init(torch.Generator(device=dev).manual_seed(0))
+    gen = ts.generator
+    ts, _, _, _, _, warm = timed_iteration(train, ts, gen, ppo, B, dev)
+    reset_counts()  # counts of the timed iterations only
+    runs = []
+    for _ in range(3):
+        ts, traj, losses, r_ms, u_ms, it_ms = timed_iteration(
+            train, ts, gen, ppo, B, dev)
+        runs.append((r_ms, u_ms, it_ms))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    T = ppo.rollout_len
+    raw = ts.env_states[1]
+    f_fwd = policy_flops(ts.net, train.obs_from(raw[:1]))
+    flops = f_fwd * (T * B + B) + 3 * f_fwd * ppo.epochs * T * B
+    it_ms = sorted(r[2] for r in runs)[1]
+    mfu = flops / (it_ms / 1e3) / PEAK_BF16
+    print(f"train (b) fused PPO bench config, {B} envs 64x64 RGB, rollout "
+          f"{T}, {ppo.epochs}x{ppo.minibatches} minibatches of "
+          f"{T * B // ppo.minibatches} on {smi}: warm-up {warm:.1f} ms; "
+          f"iterations (rollout, update, whole ms) {runs}; median "
+          f"{it_ms:.1f} ms = {T * B / (it_ms / 1e3):.6g} training "
+          f"env-steps/s; launches {launches}; peak memory "
+          f"{peak / 2**30:.2f} GiB; policy forward {f_fwd / 1e6:.3f} MFLOP "
+          f"an env, {flops:.4g} FLOP an iteration, train_mfu {mfu:.4f} "
+          f"(of {PEAK_BF16:.3g} bf16 FLOP/s)")
+    loss = float(losses.mean())
+    if not (all(torch.isfinite(v).all() for v in ts.net.parameters())
+            and torch.isfinite(traj["reward"]).all()
+            and abs(loss) < float("inf")):
+        raise AssertionError("train (b): non-finite loss, reward or weights")
+    if launches["state_step"] != 3 * T or launches["blob_render"] != 3 * T:
+        raise AssertionError(f"train (b): K1/K2 launches {launches}, want "
+                             f"{3 * T} each")
+    noise = torch.randn((T, B, 2), generator=gen, device=dev)
+    box = {}
+
+    def roll():
+        box["ts"], box["traj"], _ = train.rollout(ts, noise)
+
+    names = ["state_step_kernel", "blob_render_kernel"]
+    dev_ms, busy, win = profile_window(roll, names, top=8)
+    print(f"train (b): profiler, one rollout: window {win:.3f} ms, kernels "
+          f"busy {busy:.3f} ms, device idle share {1.0 - busy / win:.4f}; "
+          f"K1 {dev_ms.get(names[0], float('nan')):.5f} ms/launch, K2 "
+          f"{dev_ms.get(names[1], float('nan')):.5f} ms/launch")
+    if set(names) - dev_ms.keys():
+        raise AssertionError(f"train (b): no device time for "
+                             f"{set(names) - dev_ms.keys()}")
+    traj = box["traj"]
+    adv, ret = train.gae(traj, torch.zeros((B,), device=dev))
+    perms = torch.stack([torch.randperm(T * B, generator=gen, device=dev)
+                         for _ in range(ppo.epochs)])
+    _, ubusy, uwin = profile_window(
+        lambda: train.update(box["ts"], traj, adv, ret, perms), [], top=10)
+    print(f"train (b): profiler, one update: window {uwin:.3f} ms, kernels "
+          f"busy {ubusy:.3f} ms, device idle share {1.0 - ubusy / uwin:.4f}")
+    blob = box["ts"].env_states[0]
+    actions = torch.tanh(traj["action"][-1])
+    fs = train.fused_step
+    rows = held_rows("train", blob, actions, fs.tables, fs.pack, launches,
+                     dev_ms)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_nav(dev, smi):
+    """(c) One fused PPO iteration on nav_stack: stack3's maps, 4096 envs,
+    64x64, Nav with the goal in the observation (the (image, goal)
+    ActorCritic, K1 <1,1>), rollout 16."""
+    import torch
+    import dtown_torch
+    from dtown_torch.learn import ppo as P
+
+    B = 4096
+    cfg = dtown_torch.EnvConfig(camera_width=64, camera_height=64)
+    ppo = P.PPOConfig(rollout_len=16)
+    init, train = P.make_ppo(cfg, dtown_torch.stack_maps(STACK3), B, ppo,
+                             fused=True, nav=True, goal_in_obs=True,
+                             device=dev)
+    ts = init(torch.Generator(device=dev).manual_seed(1))
+    reset_counts()
+    t0 = time.perf_counter()
+    ts, metrics = train(ts)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    print(f"train (c) fused Nav PPO nav_stack, {B} envs 64x64, goal in obs, "
+          f"rollout 16: first iteration {ms:.1f} ms; metrics {metrics}; "
+          f"launches {launches}")
+    if not (abs(metrics["loss"]) < float("inf") and "goal_frac" in metrics
+            and launches["state_step"] == 16
+            and launches["blob_render"] == 16):
+        raise AssertionError("train (c): Nav PPO malformed")
+
+
+def train_learns(dev, smi):
+    """(d) Fused PPO on state observations, small_loop, 1024 envs, rollout
+    32, 30 iterations: tests/test_learning.py's bars (tail mean reward >
+    head + 1.0, done_frac falling; head and tail are 5 iterations)."""
+    import torch
+    import dtown_torch
+    from dtown_torch.learn import ppo as P
+
+    cfg = dtown_torch.EnvConfig(obs_type="state")
+    init, train = P.make_ppo(cfg, dtown_torch.load_map("small_loop"), 1024,
+                             P.PPOConfig(rollout_len=32), fused=True,
+                             device=dev)
+    ts = init(torch.Generator(device=dev).manual_seed(0))
+    hist = []
+    t0 = time.perf_counter()
+    for _ in range(30):
+        ts, m = train(ts)
+        hist.append((float(m["mean_reward"]), float(m["done_frac"])))
+    s = time.perf_counter() - t0
+    head = sum(h[0] for h in hist[:5]) / 5
+    tail = sum(h[0] for h in hist[-5:]) / 5
+    head_d = sum(h[1] for h in hist[:5]) / 5
+    tail_d = sum(h[1] for h in hist[-5:]) / 5
+    print(f"train (d) learning, state obs small_loop 1024 envs rollout 32, "
+          f"30 iterations in {s:.1f} s: mean_reward head {head:.4f} -> tail "
+          f"{tail:.4f} (bar: > head + 1.0), done_frac {head_d:.5f} -> "
+          f"{tail_d:.5f} (bar: falling); per iteration "
+          f"{[round(h[0], 3) for h in hist]}")
+    if not (tail > head + 1.0 and tail_d < head_d):
+        raise AssertionError("train (d): PPO did not learn on small_loop")
+
+
+def train_step_path(dev, smi):
+    """(e) One PPO iteration on the step path (make_ppo(fused=False) over
+    env.make_vec_env, renderer="pallas"): loop_obstacles, 4096 envs,
+    64x64, rollout 32, after a warm-up iteration. K3 must launch."""
+    import torch
+    import dtown_torch
+    from dtown_torch.learn import ppo as P
+
+    B, T = 4096, 32
+    cfg = dtown_torch.EnvConfig(camera_width=64, camera_height=64,
+                                renderer="pallas")
+    init, train = P.make_ppo(cfg, dtown_torch.load_map("loop_obstacles"), B,
+                             P.PPOConfig(rollout_len=T), device=dev)
+    ts = init(torch.Generator(device=dev).manual_seed(2))
+    ts, _ = train(ts)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ts, metrics = train(ts)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    print(f"train (e) step-path PPO, loop_obstacles {B} envs 64x64, rollout "
+          f"{T}: {ms:.1f} ms = {T * B / (ms / 1e3):.6g} training "
+          f"env-steps/s on {smi}; metrics {metrics}; launches {launches}")
+    if not (abs(metrics["loss"]) < float("inf")
+            and launches["row_render_static"] == T + 1):
+        raise AssertionError("train (e): step-path PPO malformed or K3 "
+                             "did not launch")
+
+
+def train_phase(dev, smi):
+    """The learner: (a) card vs CPU, (b) the bench's default timed, (c)
+    nav_stack, (d) a learning check, (e) the step path. Returns the
+    kernels' rows of (b)."""
+    ppo_card_vs_cpu(dev)
+    rows = train_bench(dev, smi)
+    train_nav(dev, smi)
+    train_learns(dev, smi)
+    train_step_path(dev, smi)
+    return rows
+
 
 
 def probe_phase(dev, smi):
@@ -1421,6 +1761,9 @@ def main():
             library_ms=None))
         del run
         torch.cuda.empty_cache()
+
+    # ---- the PPO learner on the fused rollout and the step path ----------------------
+    kernels += train_phase(dev, smi)
 
     # ---- the throughput probe (K5) --------------------------------------------------
     kernels += probe_phase(dev, smi)

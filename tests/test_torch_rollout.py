@@ -89,7 +89,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtown'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                    'chex', 'dtown'))\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -5,9 +5,12 @@ holds each against its plain torch version, drives the fused rollout
 grayscale and state observations, then stacks of maps and the Nav task,
 then fisheye, the reference's native 640x480 and triangle-mesh objects)
 and the vectorized step API (make_vec) on a static-scene map, a row-fed
-map and a domain-randomized map, then both with fisheye, trains the PPO
-learner (dtown_torch.learn) on the fused rollout and the step path, runs
-the float32/bfloat16 throughput probe, and prints what it measured.
+map and a domain-randomized map, then both with fisheye, the default
+env surface (make_vec's defaults through the XLA ray-caster, a stack on
+the step path, the gym env, the fused rollout past its render plan),
+trains the PPO learner (dtown_torch.learn) on the fused rollout and the
+step path, runs the float32/bfloat16 throughput probe, and prints what
+it measured.
 
     python3 chip_smoke.py
 
@@ -85,7 +88,28 @@ Phases (any failure exits non-zero and prints no result):
      objects, half facing one (max |diff| 0), the plain versions' times
      and the bounds, counted by the kernels' own culls (row_raster.
      row_kept, row_sphere_pass) like the blob render's;
-  8. the PPO learner (dtown_torch.learn.make_ppo): (a) one fused
+  8. the default env surface (surface_phase), 4096 envs 64x64 with the
+     default EnvConfig (auto-reset, marking AA, obj_lod_px 2.0) unless
+     stated: (g) make_vec("loop_obstacles", 4096) with default arguments,
+     renderer "xla", the XLA ray-caster as batched torch (no kernel):
+     first the card vs the CPU on 8 envs 32x32 after 16 steps (poses 1e-5,
+     rewards 1e-4, speeds 3e-4, discrete outputs equal, frames mean |diff|
+     <= 0.25 and share > 1 <= 0.5%), then 64 timed steps (CUDA events;
+     env-steps/s, peak memory, the render's share of a step on the host
+     clock, the device's idle share over a profiler window), and, for
+     information, the frames against the row-fed K3 on the same states at
+     dtown's bar between renderers; (h) make_vec(stack3) timed the same
+     way over 32 steps; (i) dtown_torch.make("loop_obstacles"), one env
+     at 640x480: 200 steps with numpy frames (steps/s) and one top-down
+     frame with the agent marker; (j) the fused rollout past the blob
+     render's budget on one map (build/chip_smoke/dense_obstacles.yaml,
+     56 objects): the
+     state kernel and K4 once a step each, timed (device ms per launch),
+     then both against their plain versions on the run's last blob and
+     states (max |diff| 0) and on posed states, with the bounds; (k) the
+     same on the stack udem1 x 4, frames from the ray-caster, the state
+     kernel held as in (j);
+  9. the PPO learner (dtown_torch.learn.make_ppo): (a) one fused
      iteration on loop_obstacles, 64 envs 32x32, rollout 4, 2 epochs x 2
      minibatches, on the card and on the CPU from the same parameters,
      blob, noise and permutations (dones equal, rewards within 1e-3, loss
@@ -106,7 +130,7 @@ Phases (any failure exits non-zero and prints no result):
      step-path iteration (make_ppo(fused=False), renderer="pallas",
      loop_obstacles 4096 envs 64x64, rollout 32) after a warm-up, with its
      env-steps/s, the static-scene row render launched;
-  9. the throughput probe (K5, python -m dtown_torch.probes) in float32
+  10. the throughput probe (K5, python -m dtown_torch.probes) in float32
      and bfloat16 at the reference probe's [4096, 32, 128], 256 steps:
      the probe's loop (its launches counted), the kernel vs its plain
      version on seeded inputs (max |diff| 0), the device time per launch
@@ -467,31 +491,42 @@ def read_counts():
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
+def card_and_cpu(cfg, map_name, B, n_steps, dev):
+    """The step path (make_vec_env) on the card and on the CPU from the
+    same CPU-built states of B envs, n_steps seeded actions (auto-reset
+    off in cfg). Returns ((states, outputs) on the card, the same on the
+    CPU), all on the CPU."""
+    import torch
+    import dtown_torch
+    from dtown_torch import env as tenv
+
+    maps = dtown_torch.load_map(map_name)
+    start = tenv.reset(cfg, maps.to("cpu"),
+                       torch.Generator().manual_seed(3), B)
+    gen = torch.Generator().manual_seed(4)
+    acts = [torch.rand((B, 2), generator=gen) * torch.tensor([1.0, 2.0])
+            - torch.tensor([0.0, 1.0]) for _ in range(n_steps)]
+    res = {}
+    for d in ("cpu", dev):
+        _, v_step = tenv.make_vec_env(cfg, maps, B, device=d)
+        s = start.to(d)
+        for a in acts:
+            s, out = v_step(s, a.to(d))
+        res[str(d)] = (s.to("cpu"), {k: v.cpu() for k, v in
+                                     vars(out).items()})
+    return res[str(dev)], res["cpu"]
+
+
 def vec_card_vs_cpu(map_name, dev, **kw):
     """The vector env on the card vs on the CPU, 64 envs 32x32, from the
     same CPU-built states, 5 steps without auto-reset; kw are further
     EnvConfig fields."""
     import torch
     import dtown_torch
-    from dtown_torch import env as tenv
 
     cfg = dtown_torch.EnvConfig(camera_width=32, camera_height=32,
                                 renderer="pallas", auto_reset=False, **kw)
-    maps = dtown_torch.load_map(map_name)
-    start = tenv.reset(cfg, maps.to("cpu"),
-                       torch.Generator().manual_seed(3), 64)
-    gen = torch.Generator().manual_seed(4)
-    acts = [torch.rand((64, 2), generator=gen) * torch.tensor([1.0, 2.0])
-            - torch.tensor([0.0, 1.0]) for _ in range(5)]
-    res = {}
-    for d in ("cpu", dev):
-        _, v_step = tenv.make_vec_env(cfg, maps, 64, device=d)
-        s = start.to(d)
-        for a in acts:
-            s, out = v_step(s, a.to(d))
-        res[str(d)] = (s.to("cpu"), {k: v.cpu() for k, v in
-                                     vars(out).items()})
-    (sg, og), (sc, oc) = res[str(dev)], res["cpu"]
+    (sg, og), (sc, oc) = card_and_cpu(cfg, map_name, 64, 5, dev)
     pose = max(float((sg.pos - sc.pos).abs().max()),
                float((sg.angle - sc.angle).abs().max()),
                float((sg.dyn.pos - sc.dyn.pos).abs().max()))
@@ -1231,6 +1266,49 @@ def tri_mesh_map():
     return map_loader.compile_map(data)
 
 
+DENSE_OBJECTS = 56
+
+
+def dense_map_data():
+    """Cell (j)'s map: loop_obstacles' tiles and objects plus static cones
+    and duckies on a 7x7 grid over the tiles inside the loop, 56 objects
+    in all, past the blob render's 48 (a YAML dict for
+    map_loader.compile_map)."""
+    import os
+    import yaml
+    from dtown_torch import map_loader
+
+    with open(os.path.join(map_loader.MAPS_DIR, "loop_obstacles.yaml")) as f:
+        data = yaml.safe_load(f)
+    objs = data["objects"]
+    k = 0
+    while len(objs) < DENSE_OBJECTS:
+        i, j = divmod(k, 7)
+        objs.append({"kind": "cone" if k % 2 else "duckie",
+                     "pos": [1.2 + 0.43 * i, 1.2 + 0.43 * j],
+                     "rotate": (37 * k) % 360, "height": 0.08,
+                     "static": True})
+        k += 1
+    return data
+
+
+def write_dense_map():
+    """dense_map_data() written as build/chip_smoke/dense_obstacles.yaml
+    and compiled from that file."""
+    import os
+    import yaml
+    from dtown_torch import map_loader
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "dense_obstacles.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dense_map_data(), f)
+    with open(path) as f:
+        return map_loader.compile_map(yaml.safe_load(f))
+
+
 def tri_pixels_won(maps, dev):
     """Eight envs posed 0.5 m from the mesh object, facing it from eight
     directions, 64x64 RGB at triangle fidelity: the blob render kernel vs
@@ -1637,6 +1715,275 @@ def probe_phase(dev, smi):
     return rows
 
 
+def raster_diff(a, b):
+    """(mean |diff|, share of values off by more than 1, max |diff|) of two
+    uint8 frame batches, per frame (the worst frame's mean and share)."""
+    d = (a.int() - b.int()).abs().reshape(a.shape[0], -1).float()
+    return (float(d.mean(1).max()), float((d > 1).float().mean(1).max()),
+            float(d.max()))
+
+
+def vec_timed(tag, v_step, states, actions, dev, smi, n_steps, split=None):
+    """A step-path run on the card: a warm-up, then n_steps timed with CUDA
+    events (env-steps/s, peak memory), the render's share of a step (host
+    clock, physics alone and render alone) and a profiler window of 2
+    steps (the device's idle share). Returns (states, last output)."""
+    import torch
+
+    for _ in range(3):
+        states, out = v_step(states, actions)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    B = states.batch_size
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_steps):
+        states, out = v_step(states, actions)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{tag}: {B} envs, {n_steps} steps in {ms:.2f} ms = "
+          f"{B * n_steps / (ms / 1e3):.6g} env-steps/s ({ms / n_steps:.3f} "
+          f"ms/step), peak memory {peak:.3f} GiB on {smi}")
+    if split is not None:
+        t = {}
+        for name, fn in split.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                fn(states)
+            torch.cuda.synchronize()
+            t[name] = (time.perf_counter() - t0) / 4 * 1e3
+        share = t["render"] / (t["render"] + t["physics"])
+        print(f"{tag}: per step, host clock: physics {t['physics']:.3f} ms, "
+              f"render {t['render']:.3f} ms (render share {share:.4f})")
+
+    def window():
+        s = states
+        for _ in range(2):
+            s, _ = v_step(s, actions)
+
+    _, busy, win = profile_window(window, [])
+    print(f"{tag}: profiler, 2 steps: window {win:.3f} ms, kernels busy "
+          f"{busy:.3f} ms, device idle share {1.0 - busy / win:.4f}")
+    if not (bool(torch.isfinite(out.reward).all())
+            and float(out.obs.float().std()) > 5.0):
+        raise AssertionError(f"{tag}: step output malformed")
+    return states, out
+
+
+def xla_card_vs_cpu(dev):
+    """(g)'s check: make_vec with default arguments (renderer "xla") on the
+    card vs the CPU, 8 envs 32x32 from the same states, 16 steps without
+    auto-reset: poses within 1e-5, rewards 1e-4, speeds 3e-4, discrete
+    outputs equal, the frames at the raster bars (mean |diff| <= 0.25,
+    share > 1 <= 0.5% per frame)."""
+    import torch
+    import dtown_torch
+
+    cfg = dtown_torch.EnvConfig(camera_width=32, camera_height=32,
+                                auto_reset=False)
+    (sg, og), (sc, oc) = card_and_cpu(cfg, "loop_obstacles", 8, 16, dev)
+    pose = max(float((sg.pos - sc.pos).abs().max()),
+               float((sg.angle - sc.angle).abs().max()))
+    speed = float((sg.speed - sc.speed).abs().max())
+    rew = float((og["reward"] - oc["reward"]).abs().max())
+    same = all(torch.equal(og[k], oc[k])
+               for k in ("done", "collision", "in_lane"))
+    mean, share, mx = raster_diff(og["obs"], oc["obs"])
+    print(f"(g) make_vec defaults card vs cpu (8 envs 32x32, 16 steps): "
+          f"pose max |diff| {pose:.3g}, speed {speed:.3g}, reward "
+          f"{rew:.3g}, discrete equal {same}; frames mean |diff| "
+          f"{mean:.4g}, share >1 {share:.4g}, max {mx:.0f}")
+    if not (pose < 1e-5 and speed <= 3e-4 and rew <= 1e-4 and same
+            and mean <= 0.25 and share <= 0.005):
+        raise AssertionError("(g): the card's step path disagrees with the "
+                             "CPU's")
+
+
+def planless_phase(tag, maps, dev, smi, n_steps, held):
+    """A fused rollout past the blob render's budget, 4096 envs 64x64: the
+    state kernel and (one map) K4 launch once a step; a timed run (CUDA
+    events, per-launch device ms from a profiler window, peak memory), the
+    output checked; then the kernels against their plain versions on the
+    run's last blob and states (max |diff| 0). Returns the kernels' rows
+    of the JSON line."""
+    import torch
+    import dtown_torch
+    from dtown_torch.ops import fused_env as fe
+    from dtown_torch.render import row_raster as rr
+
+    B = 4096
+    cfg = dtown_torch.EnvConfig()
+    ib, fs, _ = dtown_torch.make_fused_rollout(cfg, maps, B, device=dev)
+    st, pk = fs.tables, fs.pack
+    if not pk.get("planless"):
+        raise AssertionError(f"{tag}: the scene has a render plan")
+    blob = ib(torch.Generator(device=dev).manual_seed(21))
+    actions = torch.rand((B, 2), generator=torch.Generator(
+        device=dev).manual_seed(22), device=dev)
+    actions[:, 1] = actions[:, 1] * 2.0 - 1.0
+    for _ in range(3):
+        blob, out, obs = fs(blob, actions)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()  # counts of this path's run only
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n_done = torch.zeros((), dtype=torch.int64, device=dev)
+    start.record()
+    for _ in range(n_steps):
+        blob, out, obs = fs(blob, actions)
+        n_done += out.done.sum()
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{tag}: fused planless, {B} envs 64x64: {n_steps} steps in "
+          f"{ms:.2f} ms = {B * n_steps / (ms / 1e3):.6g} env-steps/s "
+          f"({ms / n_steps:.3f} ms/step), peak memory {peak:.3f} GiB on "
+          f"{smi}; auto-resets {int(n_done)}; launches {launches}")
+    want = {"state_step": n_steps,
+            "row_render": 0 if maps.is_stack else n_steps}
+    if any(launches[k] != n for k, n in want.items()) or \
+            launches["blob_render"] or launches["row_render_static"]:
+        raise AssertionError(f"{tag}: launches {launches}, want {want}")
+    shape = (B, 64, 64, 3) if maps.is_stack else (B, 3, 32, 128)
+    if not (tuple(obs.shape) == shape and obs.dtype == torch.uint8
+            and float(obs.float().std()) > 5.0
+            and bool(torch.isfinite(out.reward).all())):
+        raise AssertionError(f"{tag}: output malformed {tuple(obs.shape)}")
+
+    def window():
+        b = blob
+        for _ in range(4):
+            b, _, _ = fs(b, actions)
+
+    names = ["state_step_kernel", "row_render_kernel"]
+    dev_ms, busy, win = profile_window(window, names)
+    print(f"{tag}: profiler, 4 steps: window {win:.3f} ms, kernels busy "
+          f"{busy:.3f} ms, device idle share {1.0 - busy / win:.4f}; "
+          f"device ms/launch {dev_ms}")
+    if "state_step_kernel" not in dev_ms or (
+            not maps.is_stack and "row_render_kernel" not in dev_ms):
+        raise AssertionError(f"{tag}: no device time in the trace")
+    rows = held_rows(held, blob, actions, st, None, launches, dev_ms)
+    if not maps.is_stack:
+        maps_d = maps.to(dev)
+        states = fe.update_states_from_blob(pk["template"], blob, maps_d,
+                                            cfg.domain_rand)
+        run = dict(cfg=cfg, maps=maps_d, pk=pk["rows"], states=states,
+                   ms=dev_ms["row_render_kernel"])
+        err, plain_ms, b_ms, b_by = row_kernel_check(run, dev)
+        rows.append(dict(
+            name=f"row_render[{held}]", route="cuda",
+            source="dtown_torch/csrc/row_render.cu",
+            replaces="dtown/render/pallas_raster.py:326",
+            launches=launches["row_render"], max_abs_err=err,
+            ms=dev_ms["row_render_kernel"], plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def surface_phase(dev, smi):
+    """The default env surface on the card: (g) make_vec with default
+    arguments (the XLA ray-caster as batched torch), (h) a stack on the
+    step path, (i) the gym env at 640x480, (j) the fused rollout past the
+    render plan on one map (K1 and K4), (k) the same on a stack (K1 and
+    the ray-caster). Returns (j)'s and (k)'s kernel rows."""
+    import numpy as np
+    import torch
+    import dtown_torch
+    from dtown_torch import env as tenv
+    from dtown_torch.render import row_raster as rr
+
+    B = 4096
+    t0 = time.time()
+    lap = lambda tag: print(f"{tag}: wall {time.time() - t0:.1f} s into "
+                            f"the surface phase")
+    # (g) ---------------------------------------------------------------
+    xla_card_vs_cpu(dev)
+    cfg, maps, v_reset, v_step = dtown_torch.make_vec("loop_obstacles", B)
+    if v_step.pack is not None or cfg.renderer != "xla":
+        raise AssertionError("(g): make_vec's defaults are not the "
+                             "ray-caster")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    actions = torch.rand((B, 2), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    actions[:, 1] = actions[:, 1] * 2.0 - 1.0
+    split = {"physics": lambda s: tenv.step_physics(
+        cfg, maps, s, actions, generator=gen, facts=v_step.facts),
+        "render": lambda s: tenv.render_obs_batch(cfg, maps, s)}
+    states, out = vec_timed("(g) make_vec loop_obstacles defaults",
+                            v_step, v_reset(gen), actions, dev, smi, 64,
+                            split)
+    if out.obs.shape != (B, 64, 64, 3):
+        raise AssertionError(f"(g): frames {tuple(out.obs.shape)}")
+    # for information: the ray-caster against the row-fed static-scene
+    # kernel (K3) on the same states, at dtown's bar between renderers
+    pcfg = dtown_torch.EnvConfig(renderer="pallas")
+    k3 = rr.planes_to_nhwc(pcfg, rr.render_frames_rows(
+        pcfg, maps, states, pack=rr.pack_row_scene(pcfg, maps)))
+    d = (k3.int() - out.obs.int()).abs().float()
+    # out.obs are the frames of the states the step returned
+    print(f"(g) ray-caster vs K3 on the same states: mean |diff| "
+          f"{float(d.mean()):.4g}, share >10 {float((d > 10).float().mean()):.4g}"
+          f" (dtown's bar between renderers: < 2.0 and < 0.03)")
+    del states, out, k3, d
+    torch.cuda.empty_cache()
+    lap("(g)")
+
+    # (h) ---------------------------------------------------------------
+    cfg, maps, v_reset, v_step = dtown_torch.make_vec(STACK3, B)
+    split = {"physics": lambda s: tenv.step_physics(
+        cfg, maps, s, actions, generator=gen, facts=v_step.facts),
+        "render": lambda s: tenv.render_obs_batch(cfg, maps, s)}
+    states, out = vec_timed("(h) make_vec stack3", v_step, v_reset(gen),
+                            actions, dev, smi, 32, split)
+    if not (out.obs.shape == (B, 64, 64, 3) and torch.equal(
+            states.map_idx.cpu(), torch.arange(B, dtype=torch.int32) % 3)):
+        raise AssertionError("(h): frames or map indices malformed")
+    del states, out
+    torch.cuda.empty_cache()
+    lap("(h)")
+
+    # (i) ---------------------------------------------------------------
+    env = dtown_torch.make("loop_obstacles")
+    obs = env.reset()
+    for _ in range(3):
+        obs, r, done, info = env.step([0.5, 0.05])
+    t_gym = time.perf_counter()
+    for _ in range(200):
+        obs, r, done, info = env.step([0.5, 0.05])
+        if done:
+            obs = env.reset()
+    dt = time.perf_counter() - t_gym
+    td = env.render("top_down")
+    red = int(((td[..., 0] > 180) & (td[..., 1] < 90)
+               & (td[..., 2] < 90)).sum())
+    print(f"(i) gym make('loop_obstacles'), 640x480: 200 steps with numpy "
+          f"frames in {dt * 1e3:.1f} ms = {200 / dt:.5g} steps/s on {smi}; "
+          f"top-down {td.shape} {td.dtype}, marker pixels {red}")
+    if not (obs.shape == (480, 640, 3) and obs.dtype == np.uint8
+            and td.shape == (480, 640, 3) and td.dtype == np.uint8
+            and red > 3 and np.isfinite(r)):
+        raise AssertionError("(i): gym frames malformed")
+    lap("(i)")
+
+    # (j), (k) ----------------------------------------------------------
+    rows = planless_phase("(j) dense_obstacles", write_dense_map(), dev,
+                          smi, 32, "dense_fallback")
+    lap("(j)")
+    rows += planless_phase("(k) udem1 x 4", dtown_torch.stack_maps(
+        ["udem1"] * 4), dev, smi, 32, "stack_fallback")
+    lap("(k)")
+    return rows
+
+
 def main():
     import torch
 
@@ -1761,6 +2108,11 @@ def main():
             library_ms=None))
         del run
         torch.cuda.empty_cache()
+
+    # ---- the default env surface: the ray-caster, stacks, gym, planless ------------
+    t0 = time.time()
+    kernels += surface_phase(dev, smi)
+    print(f"surface phase: {time.time() - t0:.1f} s")
 
     # ---- the PPO learner on the fused rollout and the step path ----------------------
     kernels += train_phase(dev, smi)

@@ -347,6 +347,13 @@ def _make_ppo_fused(cfg, maps, num_envs, ppo, nav, goal_in_obs, dev):
         raise NotImplementedError(f"fused PPO: {e}") from e
     maps_d = maps.to(dev)
     rgb = cfg.obs_type == "rgb"
+    if rgb and maps_d.is_stack and fused_step.pack.get("planless"):
+        # past the blob render's budget a stack's frames come from the
+        # XLA ray-caster as [B, H, W, C], not the planes this path reads
+        raise NotImplementedError(
+            "fused PPO: RGB on a stack past the blob render's budget (more "
+            "than 8 maps, 48 objects or 8 moving NPCs); use "
+            "make_ppo(..., fused=False)")
     view = planes_view(cfg)
 
     def obs_from(raw):

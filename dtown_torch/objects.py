@@ -211,20 +211,21 @@ def step_dynamic_objects(maps, dyn, dt) -> T.DynObjState:
 
 def dynamic_corners(maps, dyn):
     """Footprint corners [B, M, 4, 2] and SAT axes [B, M, 2, 2] of every
-    slot: static slots keep the map's, dynamic slots follow their pose."""
-    hw = maps.obj_halfdims[:, 0]
-    hl = maps.obj_halfdims[:, 1]
+    slot: static slots keep the map's, dynamic slots follow their pose.
+    The map's object tables are [M, ...] or, one per env, [B, M, ...]."""
+    hw = maps.obj_halfdims[..., 0]
+    hl = maps.obj_halfdims[..., 1]
     f = get_dir_vec(dyn.angle)
     r = get_right_vec(dyn.angle)
     p = torch.stack([dyn.pos[..., 0], dyn.pos[..., 2]], dim=-1)
     fxz = torch.stack([f[..., 0], f[..., 2]], dim=-1)
     rxz = torch.stack([r[..., 0], r[..., 2]], dim=-1)
-    hl_, hw_ = hl[:, None], hw[:, None]
+    hl_, hw_ = hl[..., None], hw[..., None]
     corners = torch.stack([p - hl_ * fxz - hw_ * rxz,
                            p + hl_ * fxz - hw_ * rxz,
                            p + hl_ * fxz + hw_ * rxz,
                            p - hl_ * fxz + hw_ * rxz], dim=-2)
     norms = torch.stack([rxz, fxz], dim=-2)
-    sel = maps.obj_is_dynamic[:, None, None]
+    sel = maps.obj_is_dynamic[..., None, None]
     return (torch.where(sel, corners, maps.obj_corners),
             torch.where(sel, norms, maps.obj_norms))

@@ -12,13 +12,21 @@ from the blob's rows, so that path runs the state kernel alone. EnvState
 <-> blob conversion (``pack_blob``, ``update_states_from_blob``) happens
 once at the rollout's boundary.
 
+A scene past the blob render's budget (more than 48 objects or 8 moving
+NPCs; a stack past 8 maps, or of more than one tile size) has no render
+plan: its frames come from the EnvState that ``update_states_from_blob``
+writes from the blob into a template of states (``template_states``),
+through the row-fed render K4 on one map (planes [B, 3, S, 128]) or the
+XLA ray-caster on a stack (frames [B, H, W, C]), as in the reference's
+``render_rgb_from_blob``.
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where the plain torch versions run instead of the kernels.
 Scope: single maps and stacks of maps (map_loader.stack_maps; env b on
 member b % n_maps, kept across resets), with moving NPCs, domain
 randomization, RGB or grayscale frames, or state vectors; and the Nav task
 (``make_fused_nav_rollout``: goal tiles in the blob, checked and redrawn
-inside the state kernel). A scene past the blob render's budget raises.
+inside the state kernel).
 """
 from __future__ import annotations
 
@@ -29,13 +37,15 @@ import torch
 
 from dtown_torch import constants as C
 from dtown_torch import env
+from dtown_torch import objects as objlib
 from dtown_torch import randomization
 from dtown_torch import tasks
 from dtown_torch.device import resolve_device
 from dtown_torch.geometry import get_lane_pos2
 from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import blob_raster as br
-from dtown_torch.types import EnvConfig, tree_where
+from dtown_torch.render import raster, row_raster
+from dtown_torch.types import EnvConfig, EnvState, tree_where
 
 _DEG2RAD = float(np.float32(np.pi / 180.0))
 
@@ -237,15 +247,71 @@ def state_obs_from_blob(blob):
                       blob[sk.F_OLDEG] * _DEG2RAD, inlane)
 
 
+def template_states(cfg, maps, num_envs: int):
+    """The EnvState that the planless render reads besides the blob rows:
+    nominal reset-time fields (camera, light, colours, texture variants;
+    with domain randomization the blob's rows overwrite them) and each
+    env's initial object poses on its member (env b on member b % n_maps),
+    on the map's device. The pose, NPC and randomization fields come from
+    the blob at every step (update_states_from_blob).
+
+    The reference builds the whole template from member 0 of a stack, so
+    an env on another member would draw that member's static objects at
+    member 0's slot poses; here each env takes its own member's poses,
+    which is the same on a stack of one map repeated."""
+    dev = maps.obj_pos.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one(m):
+        rand = randomization.draw(cfg, num_envs, maps.grid_shape,
+                                  maps.max_objects, dev, generator=gen)
+        zero = torch.zeros((num_envs,), dtype=torch.float32, device=dev)
+        return EnvState(
+            pos=torch.zeros((num_envs, 3), device=dev), angle=zero,
+            step_count=torch.zeros((num_envs,), dtype=torch.int32,
+                                   device=dev),
+            speed=zero, wheel_vels=torch.zeros((num_envs, 2), device=dev),
+            last_action=torch.zeros((num_envs, 2), device=dev),
+            map_idx=env.initial_map_indices(maps, num_envs, dev),
+            dyn=objlib.init_dyn_state(m, num_envs), **rand)
+
+    return env.per_member(
+        maps, env.initial_map_indices(maps, num_envs, dev), one)
+
+
+def render_rgb_from_blob(cfg, maps, blob, pk):
+    """Frames of the blob's current state: through the blob render with a
+    packed plan, or, with the planless pack (``planless_pack``), through
+    K4 on one map (planes uint8 [B, 3, S, 128]) or the XLA ray-caster on a
+    stack (uint8 [B, H, W, C]). ``maps`` is the map on the blob's
+    device."""
+    if not pk.get("planless"):
+        return br.render_frames_from_blob(blob, pk)
+    states = update_states_from_blob(pk["template"], blob, maps,
+                                     cfg.domain_rand)
+    if maps.is_stack:
+        return raster.render_frame(cfg, maps, states)
+    return row_raster.render_frames_rows(cfg, maps, states, pack=pk["rows"])
+
+
+def planless_pack(cfg, maps, num_envs: int):
+    """What render_rgb_from_blob needs for a scene without a render plan
+    (``maps`` on the device): the template states and, on one map, K4's
+    row-render pack."""
+    return dict(planless=True, template=template_states(cfg, maps, num_envs),
+                rows=None if maps.is_stack
+                else row_raster.pack_row_scene(cfg, maps))
+
+
 def obs_from_blob(cfg, maps, blob, pk=None):
     """Observation of the blob's current state without stepping (the
-    first observation of a rollout): frames through the blob render with
-    the packed plan ``pk`` (on a stack too), or state vectors whose lane
-    features come from geometry.get_lane_pos2 on the blob's pose, each env
-    on its own member of a stack. ``maps`` is the map on the blob's
-    device."""
+    first observation of a rollout): frames through render_rgb_from_blob
+    with the rollout's pack ``pk`` (fused_step.pack), or state vectors
+    whose lane features come from geometry.get_lane_pos2 on the blob's
+    pose, each env on its own member of a stack. ``maps`` is the map on
+    the blob's device."""
     if cfg.obs_type == "rgb":
-        return br.render_frames_from_blob(blob, pk)
+        return render_rgb_from_blob(cfg, maps, blob, pk)
     pos = torch.stack([blob[sk.F_POS_X], blob[sk.F_POS_Y],
                        blob[sk.F_POS_Z]], -1)
     if maps.is_stack:
@@ -284,8 +350,9 @@ def _goal_features(blob, navb, ts):
 
 def _setup(cfg, maps, num_envs, device, nav):
     """What both fused rollouts build once: the device, the state kernel's
-    tables (with the goal table under Nav), the packed render plan (None
-    for state observations) and the map on the device."""
+    tables (with the goal table under Nav), the render pack (the packed
+    blob-render plan, or planless_pack past the plan's budget; None for
+    state observations) and the map on the device."""
     dev = resolve_device(device)
     if num_envs % 8 != 0:
         raise ValueError(f"num_envs must be divisible by 8; got {num_envs}")
@@ -294,18 +361,13 @@ def _setup(cfg, maps, num_envs, device, nav):
     tables = sk.build_tables(cfg, maps)
     st = sk.device_tables(cfg, tables, dev,
                           sk.build_goal_table(maps) if nav else None)
+    maps_d = maps.to(dev)
     pk = None
     if cfg.obs_type == "rgb":
         plan = br.build_render_plan(cfg, maps)
-        if plan is None:
-            raise NotImplementedError(
-                "the scene is past the blob render's budget (48 objects, 8 "
-                "moving NPCs; a stack: 8 maps of one tile size): the "
-                "reference renders it with the row-fed kernels (one map) "
-                "or its XLA ray-caster (a stack), which the fused path "
-                "does not take yet")
-        pk = br.pack_plan(cfg, plan, dev)
-    return dev, st, pk, maps.to(dev)
+        pk = (br.pack_plan(cfg, plan, dev) if plan is not None
+              else planless_pack(cfg, maps_d, num_envs))
+    return dev, st, pk, maps_d
 
 
 def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
@@ -318,9 +380,11 @@ def make_fused_rollout(cfg: EnvConfig, maps, num_envs: int,
     member b % n_maps) and the hash counters, all drawn from
     ``generator``, a torch.Generator on the rollout's device.
     fused_step(blob, actions[B, 2]) -> (blob, StepOutput, obs): obs is u8
-    [B, C, S, 128] frames (C = 1 under grayscale) or f32 [B, 11] state
-    vectors. fused_step.tables and fused_step.pack are the kernels' device
-    tables and packed render plan (None for state observations).
+    [B, C, S, 128] frames (C = 1 under grayscale; past the render plan's
+    budget K4's 3 planes on one map, u8 [B, H, W, C] on a stack) or f32
+    [B, 11] state vectors. fused_step.tables and fused_step.pack are the
+    kernels' device tables and the render pack (the packed plan or
+    planless_pack; None for state observations).
     rollout(blob, actions, n_iters) -> (blob, reward_sum, obs_checksum):
     n_iters fused steps with fixed actions; reward_sum is the last step's
     reward summed over envs, obs_checksum the sum of the last frame's
@@ -371,7 +435,7 @@ def _make_rollout(cfg, maps, num_envs, device, nav, goal_in_obs):
     def fused_step(blob, actions):
         blob = sk.state_step(blob, actions, st)
         if pk is not None:
-            obs = br.render_frames_from_blob(blob, pk)
+            obs = render_rgb_from_blob(cfg, maps_d, blob, pk)
             if goal_in_obs:
                 obs = (obs, torch.stack(_goal_features(blob, navb, ts), -1))
         else:

@@ -302,8 +302,28 @@ def _build_tables_single(cfg, maps):
     bank[BK_Y] = sp[:, 1]
     bank[BK_Z] = sp[:, 2]
     bank[BK_ANG] = sa
-    if cfg.start_pose is not None or cfg.user_tile_start is not None:
-        raise NotImplementedError("start-pose overrides are not ported yet")
+    # a start-pose override pins every (re)spawn to the configured pose: a
+    # bank of BANK_K copies of it (the kernel itself is unchanged)
+    if cfg.start_pose is not None:
+        x0, z0, a0 = cfg.start_pose
+        sp = np.tile([[x0, 0.0, z0]], (BANK_K, 1))
+        sa = np.full((BANK_K,), float(a0))
+        bank[BK_X], bank[BK_Y], bank[BK_Z] = x0, 0.0, z0
+        bank[BK_ANG] = float(a0)
+    elif cfg.user_tile_start is not None:
+        from dtown_torch.spawn_bank import _bezier_closest, _bezier_tangents
+
+        i0, j0 = cfg.user_tile_start
+        ts = float(maps.tile_size)
+        cx, cz = (i0 + 0.5) * ts, (j0 + 0.5) * ts
+        cps0 = np.asarray(maps.curves, np.float64)[j0, i0, 0][None]
+        t0 = _bezier_closest(cps0, np.array([[cx, 0.0, cz]]))
+        tan0 = _bezier_tangents(cps0, t0)[0]
+        a0 = float(np.arctan2(-tan0[2], tan0[0]))
+        sp = np.tile([[cx, 0.0, cz]], (BANK_K, 1))
+        sa = np.full((BANK_K,), a0)
+        bank[BK_X], bank[BK_Y], bank[BK_Z] = cx, 0.0, cz
+        bank[BK_ANG] = a0
 
     from dtown_torch.spawn_bank import lane_features_np
 

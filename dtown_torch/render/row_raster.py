@@ -312,8 +312,8 @@ def pack_row_scene(cfg, maps):
     """Everything the row-fed render needs that does not change per step,
     on the map's device (dict): frame and grid sizes, the NDC table, the
     branch (K3 when the static scene builds), K3's scene tables or K4's
-    prim matrix, and the per-slot cull distances. Multimaps are refused
-    before, by env.check_single_map."""
+    prim matrix, and the per-slot cull distances. One map: a stack renders
+    through the XLA ray-caster (render/raster.py), as in the reference."""
     host = maps.numpy()
     dev = maps.obj_pos.device
     H, W = cfg.camera_height, cfg.camera_width

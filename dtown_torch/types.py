@@ -220,11 +220,13 @@ def _tensor_fields(obj):
 
 def tree_where(cond, a, b):
     """Field-wise ``where(cond[B], a, b)`` over two states of one type
-    (nested dataclasses included)."""
+    (nested dataclasses included; a field that is None stays None)."""
     out = {}
     for name, x in _tensor_fields(a).items():
         y = getattr(b, name)
-        if dataclasses.is_dataclass(x):
+        if x is None:
+            out[name] = None
+        elif dataclasses.is_dataclass(x):
             out[name] = tree_where(cond, x, y)
         else:
             out[name] = torch.where(

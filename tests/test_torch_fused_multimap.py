@@ -4,7 +4,7 @@ the blob render) against the JAX package's ``make_fused_rollout`` and
 ``make_fused_nav_rollout``, from one initial blob, through auto-resets
 (max_steps=2): the blob after every step and the observations (frames,
 state vectors, the Nav forms); ``obs_from_blob`` on a stack; a stack past
-the blob render's budget raises."""
+the blob render's budget renders through the XLA ray-caster."""
 import numpy as np
 import pytest
 import torch
@@ -21,7 +21,9 @@ from dtown_torch import EnvConfig, load_map, make_fused_nav_rollout, \
     make_fused_rollout, stack_maps
 from dtown_torch.convert import blob_from_numpy
 from dtown_torch.ops import fused_env as tfe
+from dtown_torch.learn import ppo as tppo
 from dtown_torch.ops import state_kernel as sk
+from dtown_torch.render import blob_raster as br
 
 from test_torch_state_npc import check_rows
 
@@ -161,15 +163,33 @@ def test_obs_from_blob_on_stack_returns_planes():
 
 
 def test_stack_past_the_plan_budget_raises():
+    """A stack past the blob render's budget has no render plan: the
+    fused rollout renders it through the XLA ray-caster (frames
+    [B, H, W, 3]) and fused RGB PPO refuses it, as the reference's does
+    (tests/test_torch_fused_fallback.py compares the frames with dtown's);
+    make_vec takes a stack, whose frames come from the ray-caster whatever
+    the renderer."""
     maps = stack_maps(["udem1"] * 4)
+    cfg = EnvConfig(camera_width=S, camera_height=S)
+    assert br.build_render_plan(cfg, maps) is None
+    init_blob, fused_step, _ = make_fused_rollout(cfg, maps, 8,
+                                                  device="cpu")
+    assert fused_step.pack["planless"]
+    blob = init_blob(torch.Generator().manual_seed(0))
+    _, _, obs = fused_step(blob, torch.zeros((8, 2)))
+    assert obs.shape == (8, S, S, 3) and obs.dtype == torch.uint8
     with pytest.raises(NotImplementedError, match="budget"):
-        make_fused_rollout(EnvConfig(camera_width=S, camera_height=S), maps,
-                           8, device="cpu")
+        tppo.make_ppo(cfg, maps, 8, tppo.PPOConfig(rollout_len=2),
+                      fused=True, device="cpu")
     # state observations need no plan
     make_fused_rollout(EnvConfig(obs_type="state"), maps, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="multimaps"):
-        dtown_torch.make_vec(["small_loop", "udem1"], 8, device="cpu",
-                             renderer="pallas")
+    _, _, v_reset, v_step = dtown_torch.make_vec(
+        ["small_loop", "udem1"], 8, device="cpu", renderer="pallas",
+        camera_width=S, camera_height=S)
+    assert v_step.pack is None
+    _, out = v_step(v_reset(torch.Generator().manual_seed(0)),
+                    torch.zeros((8, 2)))
+    assert out.obs.shape == (8, S, S, 3)
 
 
 def test_baseline5_stack_entry_points_run():

@@ -5,7 +5,7 @@ name of this file's own: the parsed mesh, its triangle buffer and boxes,
 the registered kind (id, footprint, primitive table row, triangles), the
 triangle-fidelity render plan; the plain K2 against dtown's interpret-mode
 kernel on test_objmesh.py's scene at 64x64 (the blob from dtown's reset
-with its start pose, which the port does not take yet) at
+with its start pose) at
 test_torch_blob_render.py's bars (mean |diff| < 1, at most 1% of values
 off by more than 10); a fused rollout with triangles against dtown's,
 blob for blob; and the step path, which renders the kind as its boxes on
@@ -65,18 +65,54 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def mesh_path(tmp_path_factory):
-    """The sample mesh registered as KIND in both packages. Kinds that
-    other test files of this process registered in dtown are registered
-    in the port first, so that the two kind lists stay aligned."""
-    path = _write_sample(tmp_path_factory.mktemp("objmesh"))
+def _registries():
+    """Every process-global registry that register_custom_object mutates,
+    in both packages: (container, prim_tables cache owner) pairs."""
+    return [(jtypes.OBJ_KINDS, jmeshes), (jtypes.OBJ_KIND_IDS, jmeshes),
+            (jassets.OBJECT_DIMS, jmeshes), (jmeshes._PRIMS, jmeshes),
+            (jmeshes.TRI_MESHES, jmeshes), (T.OBJ_KINDS, meshes),
+            (T.OBJ_KIND_IDS, meshes), (assets.OBJECT_DIMS, meshes),
+            (meshes._PRIMS, meshes), (meshes.TRI_MESHES, meshes)]
+
+
+def register_sample_kinds(path):
+    """Register the sample mesh at ``path`` as KIND in both packages, the
+    kinds that other test files of this process registered in dtown in
+    the port first (so that the two kind lists stay aligned). Returns
+    restore(), which puts every registry back as it was, in place (other
+    modules hold references to these lists and dicts), and clears both
+    packages' cached primitive tables: a kind left registered would make
+    a later test of this process (tests/test_native.py's bake of the
+    shipped kinds) see one kind too many."""
+    saved = [(c, list(c) if isinstance(c, list) else dict(c))
+             for c, _ in _registries()]
+
+    def restore():
+        for c, old in saved:
+            if isinstance(c, list):
+                c[:] = old
+            else:
+                c.clear()
+                c.update(old)
+        jmeshes.prim_tables.cache_clear()
+        meshes.prim_tables.cache_clear()
+
     for k in jtypes.OBJ_KINDS[len(T.OBJ_KINDS):]:
         if k != KIND:
             objmesh.register_custom_object(k, path)
     jobj.register_custom_object(KIND, path)
     dtown_torch.register_custom_object(KIND, path)
-    return path
+    return restore
+
+
+@pytest.fixture(scope="module")
+def mesh_path(tmp_path_factory):
+    """The sample mesh registered as KIND in both packages for this
+    module; every registry is restored at the module's teardown."""
+    path = _write_sample(tmp_path_factory.mktemp("objmesh"))
+    restore = register_sample_kinds(path)
+    yield path
+    restore()
 
 
 @pytest.fixture(scope="module")

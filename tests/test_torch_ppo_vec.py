@@ -72,9 +72,15 @@ def test_step_path_iteration_matches_reference():
 
 
 def test_step_path_refusals():
+    """The step path's PPO takes the default renderer="xla" (the XLA
+    ray-caster) and refuses sharding."""
     cfg = EnvConfig(camera_width=32, camera_height=32)  # renderer="xla"
-    with pytest.raises(NotImplementedError, match="renderer"):
-        tppo.make_ppo(cfg, load_map("small_loop"), 8, device="cpu")
+    init, train = tppo.make_ppo(cfg, load_map("small_loop"), 8,
+                                tppo.PPOConfig(rollout_len=2, epochs=1,
+                                               minibatches=2), device="cpu")
+    ts = init(torch.Generator().manual_seed(0))
+    _, metrics = train(ts)
+    assert np.isfinite(float(metrics["loss"]))
     with pytest.raises(NotImplementedError, match="sharded"):
         _, train = tppo.make_ppo(EnvConfig(obs_type="state"),
                                  load_map("small_loop"), 8, device="cpu")

@@ -81,20 +81,33 @@ def test_cuda_entry_point_raises_without_cuda():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (the ray-caster, the gym and gymnasium
+    surfaces, the wrappers and the Nav task among them) and chip_smoke.py
+    import nothing of JAX or dtown; gymnasium, an optional extra that the
+    card machine lacks, is imported by gymnasium_compat alone."""
     code = (
         "import importlib, pkgutil, sys\n"
         "before = set(sys.modules)\n"
         "import dtown_torch\n"
-        "for m in pkgutil.walk_packages(dtown_torch.__path__, 'dtown_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    dtown_torch.__path__, 'dtown_torch.')]\n"
+        "for n in names:\n"
+        "    if n != 'dtown_torch.gymnasium_compat':\n"
+        "        importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "gym = sorted(m for m in set(sys.modules) - before\n"
+        "             if m.split('.')[0] == 'gymnasium')\n"
+        "importlib.import_module('dtown_torch.gymnasium_compat')\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                    'chex', 'dtown'))\n"
-        "print(bad)\n"
+        "print(bad, gym, sorted(n.split('.')[-1] for n in names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    assert out.stdout.startswith("[] [] "), out.stdout
+    for m in ("raster", "gym_compat", "gymnasium_compat", "wrappers",
+              "tasks", "shading"):
+        assert f"'{m}'" in out.stdout, m

@@ -111,20 +111,20 @@ def test_state_step_rejects_bad_inputs():
 
 
 def test_state_step_scope_raises():
-    """What the state step does not take yet: the start-pose overrides (on
-    a stack too). Moving NPCs, domain randomization and stacks of maps
-    build."""
+    """The state step's tables take every option: the start-pose
+    overrides (on a stack too: every member's bank holds the pose), moving
+    NPCs, domain randomization and stacks of maps."""
     maps = load_map("small_loop")
     stacked = stack_maps(["small_loop", "4way"])
-    with pytest.raises(NotImplementedError, match="start-pose"):
-        sk.build_tables(EnvConfig(start_pose=(1.0, 1.0, 0.0)), stacked)
+    t = sk.build_tables(EnvConfig(start_pose=(1.0, 1.0, 0.0)), stacked)
     dev = sk.device_tables(EnvConfig(), sk.build_tables(EnvConfig(),
                                                         stacked), "cpu")
     assert dev["n_maps"] == 2 and dev["t_pad"] == 25
     for cfg in (EnvConfig(start_pose=(1.0, 1.0, 0.0)),
                 EnvConfig(user_tile_start=(1, 1))):
-        with pytest.raises(NotImplementedError, match="start-pose"):
-            sk.build_tables(cfg, maps)
+        bank = sk.build_tables(cfg, maps)["bank"]
+        assert (bank[sk.BK_X] == bank[sk.BK_X][0]).all()
+        assert (bank[sk.BK_ANG] == bank[sk.BK_ANG][0]).all()
     dr = EnvConfig(domain_rand=True)
     dev = sk.device_tables(dr, sk.build_tables(
         dr, load_map("loop_pedestrians")), "cpu")

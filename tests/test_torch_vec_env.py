@@ -3,6 +3,7 @@ CPU: the entry point's device rule, frames and state vectors of the
 right shape, seeded determinism, fisheye frames, and NotImplementedError
 for the options not ported yet. The numbers are held against the JAX package in
 test_torch_env_step.py and test_torch_row_render.py."""
+import numpy as np
 import pytest
 import torch
 
@@ -96,15 +97,32 @@ def test_same_seed_same_states():
     assert (a1.step_count <= 1).all() and not torch.equal(a1.pos, c0.pos)
 
 
-@pytest.mark.parametrize("kw,match", [
+@pytest.mark.parametrize("kw,label", [
     (dict(renderer="xla"), "renderer='pallas'"),
     (dict(spawn_mode="rejection"), "rejection"),
     (dict(start_pose=(1.0, 1.0, 0.0)), "start_pose"),
     (dict(user_tile_start=(1, 1)), "user_tile_start"),
 ])
-def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _vec(**kw)
+def test_unported_options_raise(kw, label):
+    """The options that the step path refused until the XLA ray-caster,
+    rejection spawning and the start overrides were ported now build and
+    step: renderer="xla" renders through the ray-caster (no row-render
+    pack), the spawns are valid, the overrides pin the start pose."""
+    kw = dict(kw, camera_width=32, camera_height=32)
+    _, maps, v_reset, v_step = _vec(**kw)
+    states = v_reset(torch.Generator().manual_seed(2))
+    _, out = v_step(states, torch.tensor([[0.3, 0.0]]).repeat(8, 1))
+    assert out.obs.shape == (8, 32, 32, 3) and out.obs.dtype == torch.uint8
+    if label == "renderer='pallas'":
+        assert v_step.pack is None
+    if label == "start_pose":
+        np.testing.assert_allclose(states.pos[:, [0, 2]].numpy(), 1.0)
+    if label == "user_tile_start":
+        ts = float(maps.numpy().tile_size)
+        assert (states.pos[:, 0] // ts == 1).all() and \
+            (states.pos[:, 2] // ts == 1).all()
+    if label == "rejection":
+        assert (states.pos != states.pos[:1]).any()
 
 
 @pytest.mark.parametrize("map_name,static", [("loop_obstacles", True),
@@ -143,9 +161,16 @@ def test_triangle_fidelity_step_path_uses_boxes():
 
 
 def test_unported_multimap_raises():
-    with pytest.raises(NotImplementedError, match="multimaps"):
-        dtown_torch.make_vec(["small_loop", "udem1"], 8, device="cpu",
-                             renderer="pallas")
-    cfg = EnvConfig(renderer="pallas")
-    with pytest.raises(NotImplementedError, match="renderer='pallas'"):
-        tenv.render_obs(cfg, load_map("small_loop").to("cpu"), None)
+    """A stack on the step path, refused until the ray-caster was ported,
+    steps and renders (through the ray-caster, whatever the renderer), and
+    render_obs renders RGB frames."""
+    _, maps, v_reset, v_step = dtown_torch.make_vec(
+        ["small_loop", "udem1"], 8, device="cpu", renderer="pallas",
+        camera_width=32, camera_height=32)
+    assert maps.is_stack and v_step.pack is None
+    states, out = v_step(v_reset(torch.Generator().manual_seed(0)),
+                         torch.zeros((8, 2)))
+    assert out.obs.shape == (8, 32, 32, 3)
+    cfg = EnvConfig(renderer="pallas", camera_width=32, camera_height=32)
+    frames = tenv.render_obs(cfg, maps, states)
+    assert torch.equal(frames, out.obs)

@@ -9,8 +9,9 @@ map and a domain-randomized map, then both with fisheye, the default
 env surface (make_vec's defaults through the XLA ray-caster, a stack on
 the step path, the gym env, the fused rollout past its render plan),
 trains the PPO learner (dtown_torch.learn) on the fused rollout and the
-step path, runs the float32/bfloat16 throughput probe, and prints what
-it measured.
+step path, then data-parallel over ranks with checkpoints and resume
+(dtown_torch.parallel, dtown_torch.train_ppo), runs the float32/bfloat16
+throughput probe, and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -137,12 +138,40 @@ Phases (any failure exits non-zero and prints no result):
      from a trace of 64 launches of the probe's loop body (CUDA events,
      said so, and the trace's keys printed, if the trace misses it), the
      rate and the bound.
+  11. training at scale (scale_phase): (a) in a fresh process under the
+     deterministic settings (torch.use_deterministic_algorithms,
+     cudnn.benchmark off, CUBLAS_WORKSPACE_CONFIG=:4096:8, set before CUDA
+     starts), dtown_torch.parallel.make_sharded_ppo(fused=True) on an NCCL
+     group of one at the bench config (loop_obstacles, 4096 envs, 64x64
+     RGB, NatureCNN, PPOConfig()) against the unsharded make_ppo from the
+     same seed, one iteration: parameters max |diff| 0 and metrics equal
+     (rank 0's stream is the shared seed, and the all_reduce of one rank
+     returns its input); then here, at the default settings, one warm-up
+     and two timed iterations of the sharded learner (CUDA events:
+     training env-steps/s beside train (b)'s of this run, K1/K2 128
+     launches each an iteration, the gradient all_reduce timed alone), a
+     traced rollout for K1/K2's device ms, and both kernels against their
+     plain versions on its last blob; (b) two ranks on the card over gloo
+     with CUDA tensors (NCCL refuses two ranks on one GPU), 2 x 64 envs
+     32x32, PPOConfig(): all_reduce, broadcast and all_gather on CUDA
+     tensors, one fused iteration, parameters bit-identical across the
+     ranks, each rank's K1/K2 (128 launches) against their plain versions
+     on its last blob at max |diff| 0; (c) python -m dtown_torch.train_ppo
+     --fused at the bench config in three fresh deterministic processes:
+     2 iterations with --ckpt-every 1, --resume for a third, and 3
+     uninterrupted; the resumed parameters equal the uninterrupted ones
+     (max |diff| 0), with the checkpoint's size and the seconds to save
+     and restore. The parent built the kernels (phase 2), so the ranks
+     and processes load them and build nothing.
 Needs CUDA; imports nothing of JAX.
 """
 import json
+import os
 import subprocess
 import sys
 import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores, which counts an FMA as two.
@@ -1462,6 +1491,11 @@ def timed_iteration(train, ts, gen, ppo, B, dev):
             ev[2].elapsed_time(ev[3]), ev[0].elapsed_time(ev[3]))
 
 
+# train (b)'s training env-steps/s in this run, beside which phase 11 (a)
+# prints its own
+TRAIN_B = {}
+
+
 def train_bench(dev, smi):
     """(b) Fused PPO at the bench's default: loop_obstacles, 4096 envs, 64x64
     RGB, NatureCNN, PPOConfig() (rollout 128, 4 epochs x 8 minibatches of
@@ -1494,6 +1528,7 @@ def train_bench(dev, smi):
     f_fwd = policy_flops(ts.net, train.obs_from(raw[:1]))
     flops = f_fwd * (T * B + B) + 3 * f_fwd * ppo.epochs * T * B
     it_ms = sorted(r[2] for r in runs)[1]
+    TRAIN_B["rate"] = T * B / (it_ms / 1e3)
     mfu = flops / (it_ms / 1e3) / PEAK_BF16
     print(f"train (b) fused PPO bench config, {B} envs 64x64 RGB, rollout "
           f"{T}, {ppo.epochs}x{ppo.minibatches} minibatches of "
@@ -1646,6 +1681,303 @@ def train_phase(dev, smi):
     train_nav(dev, smi)
     train_learns(dev, smi)
     train_step_path(dev, smi)
+    return rows
+
+
+
+# ---- phase 11: training at scale -------------------------------------------------
+
+DET_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+SCALE_DIR = "build/chip_smoke/scale"
+
+
+def set_deterministic():
+    """The settings under which two runs of one iteration agree to the bit
+    on the card (cuDNN's convolution backward may otherwise pick
+    non-deterministic engines); set before CUDA starts, CUBLAS_WORKSPACE_
+    CONFIG comes from the environment (DET_ENV)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+
+
+def run_det(args, timeout):
+    """``python chip_smoke.py --det <args>`` in a fresh process with the
+    deterministic settings; returns its stdout, raises if it fails."""
+    env = dict(os.environ, **DET_ENV)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--det",
+                        *args], env=env, cwd=REPO, capture_output=True,
+                       text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"--det {args[0]} failed ({r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def bench_cfg():
+    import dtown_torch
+
+    return (dtown_torch.EnvConfig(camera_width=64, camera_height=64),
+            dtown_torch.load_map("loop_obstacles"))
+
+
+def det_world1():
+    """(a), in a deterministic process: one iteration of
+    make_sharded_ppo(fused=True) on an NCCL group of one at the bench
+    config, and one of the unsharded make_ppo from the same seed (rank 0's
+    stream is the shared seed itself, and the all_reduce of one rank
+    returns its input): the parameters must agree to the bit."""
+    import torch
+    import torch.distributed as dist
+    from dtown_torch.learn import ppo as P
+    from dtown_torch.parallel.mesh import make_mesh
+    from dtown_torch.parallel.shard import make_sharded_ppo
+
+    cfg, maps = bench_cfg()
+    mesh = make_mesh("cuda")
+    res = {}
+    _, s_init, s_train = make_sharded_ppo(cfg, maps, 4096, P.PPOConfig(),
+                                          mesh, fused=True)
+    ts, m = s_train(s_init(0))
+    res["sharded"] = {k: v.clone() for k, v in ts.net.state_dict().items()}
+    del ts, s_train
+    torch.cuda.empty_cache()
+    u_init, u_train = P.make_ppo(cfg, maps, 4096, P.PPOConfig(), fused=True,
+                                 device=mesh.device)
+    ts, m2 = u_train(u_init(torch.Generator(device=mesh.device)
+                            .manual_seed(0)))
+    err = max(float((v - ts.net.state_dict()[k]).abs().max())
+              for k, v in res["sharded"].items())
+    same_m = {k: float(v) for k, v in m.items()} == \
+        {k: float(v) for k, v in m2.items()}
+    print(json.dumps({"backend": mesh.backend, "world": mesh.world,
+                      "max_abs_err": err, "metrics_equal": same_m}))
+    dist.destroy_process_group()
+
+
+def scale_rank(out_dir):
+    """(b), one of two ranks on the card over gloo with CUDA tensors: the
+    collectives the learner uses on CUDA tensors, then one fused
+    iteration of 2 x 64 envs 32x32 (rollout 128, 4 x 8 minibatches), its
+    K1/K2 launches, and both kernels against their plain versions on the
+    rank's last blob (max |diff| 0). Writes its parameters and results."""
+    import torch
+    import torch.distributed as dist
+    import dtown_torch
+    from dtown_torch.learn import ppo as P
+    from dtown_torch.ops import state_kernel as sk
+    from dtown_torch.parallel.mesh import make_mesh
+    from dtown_torch.parallel.shard import make_sharded_ppo
+    from dtown_torch.render import blob_raster as br
+
+    mesh = make_mesh("cuda:0", backend="gloo")
+    coll = {}
+    x = torch.full((4,), float(mesh.rank + 1), device=mesh.device)
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), src=0)),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(mesh.world)], x))):
+        fn()
+        coll[name] = True
+    y = x.clone()
+    dist.all_reduce(y)
+    coll["all_reduce_value"] = float(y[0])  # 1 + 2
+    cfg = dtown_torch.EnvConfig(camera_width=32, camera_height=32)
+    _, init, train = make_sharded_ppo(cfg, dtown_torch.load_map(
+        "loop_obstacles"), 128, P.PPOConfig(), mesh, fused=True)
+    ts = init(0)
+    reset_counts()
+    ts, metrics = train(ts)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    blob = ts.env_states[0]
+    st, pk = train.local.fused_step.tables, train.local.fused_step.pack
+    act = torch.tanh(torch.randn((blob.shape[1], 2), device=mesh.device,
+                                 generator=torch.Generator(
+                                     device=mesh.device).manual_seed(9)))
+    k1 = sk.state_step(blob, act, st)
+    k1_ref = sk.state_step_reference(blob, act[:, 0].contiguous(),
+                                     act[:, 1].contiguous(), st)
+    k1_err = float((k1 - k1_ref).abs().max())
+    k2 = br.render_frames_from_blob(blob, pk)
+    k2_err = float((k2.int() - render_plain(blob, pk).int()).abs().max())
+    torch.save({k: v.cpu() for k, v in ts.net.state_dict().items()},
+               os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    print(json.dumps({"rank": mesh.rank, "backend": mesh.backend,
+                      "collectives_on_cuda": coll, "launches": launches,
+                      "k1_max_abs_err": k1_err, "k2_max_abs_err": k2_err,
+                      "metrics": {k: float(v) for k, v in metrics.items()}}))
+    dist.destroy_process_group()
+
+
+def scale_timed(dev, smi, train_b):
+    """(a), timed at the default settings in this process: the bench
+    config through make_sharded_ppo(fused=True) on an NCCL group of one,
+    one warm-up and two timed iterations (CUDA events), K1/K2 launches,
+    one rollout traced for their device ms, the all_reduce of the
+    gradients timed alone, and both kernels against their plain versions
+    on the last blob. Returns the kernels' rows."""
+    import torch
+    import torch.distributed as dist
+    from dtown_torch.learn import ppo as P
+    from dtown_torch.parallel.mesh import make_mesh
+    from dtown_torch.parallel.shard import make_sharded_ppo
+
+    cfg, maps = bench_cfg()
+    ppo = P.PPOConfig()
+    B, T = 4096, ppo.rollout_len
+    mesh = make_mesh(dev)
+    try:
+        _, init, train = make_sharded_ppo(cfg, maps, B, ppo, mesh,
+                                          fused=True)
+        ts = init(0)
+        ts, _ = train(ts)
+        torch.cuda.synchronize()
+        reset_counts()
+        times = []
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            ts, metrics = train(ts)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        launches = read_counts()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        params = list(ts.net.parameters())
+        n_grad = sum(p.numel() for p in params)
+        ar_ms, _ = cuda_ms(lambda: P.pmean_grads_(params, mesh.group), 32)
+        it_ms = sum(times) / len(times)
+        rate = T * B / (it_ms / 1e3)
+        print(f"scale (a) make_sharded_ppo fused, NCCL world {mesh.world}, "
+              f"{B} envs 64x64, rollout {T}, {ppo.epochs}x"
+              f"{ppo.minibatches} on {smi}: iterations {times} ms, mean "
+              f"{it_ms:.1f} ms = {rate:.6g} training env-steps/s beside "
+              f"train (b)'s {train_b.get('rate', float('nan')):.6g} in "
+              f"this run ({rate / train_b.get('rate', float('nan')):.4f} "
+              f"of it); launches {launches}; gradient all_reduce "
+              f"({n_grad} f32, {4 * n_grad / 1e6:.2f} MB) {ar_ms:.4f} ms a "
+              f"call, {ppo.epochs * ppo.minibatches} calls an iteration; "
+              f"metrics {metrics}")
+        if not (launches["state_step"] == 2 * T
+                and launches["blob_render"] == 2 * T):
+            raise AssertionError(f"scale (a): K1/K2 launches {launches}, "
+                                 f"want {2 * T} each")
+        if not all(abs(v) < float("inf") for v in metrics.values()):
+            raise AssertionError("scale (a): non-finite metrics")
+        noise = torch.randn((T, B, 2), generator=ts.generator, device=dev)
+        box = {}
+
+        def roll():
+            box["ts"], box["traj"], _ = train.local.rollout(ts, noise)
+
+        names = ["state_step_kernel", "blob_render_kernel"]
+        dev_ms, busy, win = profile_window(roll, names)
+        if set(names) - dev_ms.keys():
+            raise AssertionError(f"scale (a): no device time for "
+                                 f"{set(names) - dev_ms.keys()}")
+        print(f"scale (a): profiler, one rollout: window {win:.3f} ms, "
+              f"device idle share {1.0 - busy / win:.4f}")
+        fs = train.local.fused_step
+        rows = held_rows("scale", box["ts"].env_states[0],
+                         torch.tanh(box["traj"]["action"][-1]), fs.tables,
+                         fs.pack, launches, dev_ms)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def scale_phase(dev, smi, train_b):
+    """Phase 11: (a) NCCL world 1 against the unsharded learner (a
+    deterministic process), then timed here; (b) two ranks on the card
+    over gloo; (c) train_ppo.main with checkpoints, killed and resumed as
+    separate deterministic processes. Returns the kernels' rows of (a)."""
+    import shutil
+    import torch
+    from dtown_torch.parallel.mesh import spawn_ranks
+    from dtown_torch.utils import checkpoint
+
+    t0 = time.time()
+    out_dir = os.path.join(REPO, SCALE_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    res = json.loads(run_det(["world1"], 600).strip()
+                     .splitlines()[-1])
+    print(f"scale (a) deterministic, make_sharded_ppo fused on {res['backend']}"
+          f" world {res['world']} vs make_ppo from the same seed, one "
+          f"iteration at the bench config: parameters max |diff| "
+          f"{res['max_abs_err']:.3g}, metrics equal {res['metrics_equal']}")
+    if not (res["max_abs_err"] == 0 and res["metrics_equal"]):
+        raise AssertionError("scale (a): world 1 differs from the unsharded "
+                             "learner")
+    rows = scale_timed(dev, smi, train_b)
+
+    # (b) two ranks on one card over gloo; the parent built the kernels
+    # (phase 2), so the ranks load the same libraries and build nothing
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t1 = time.time()
+    outs = spawn_ranks(2, [os.path.abspath(__file__), "--scale-rank",
+                           out_dir], timeout=300, env=env, cwd=REPO)
+    got = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    p0, p1 = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                         weights_only=True) for r in range(2)]
+    same = all(torch.equal(p0[k], p1[k]) for k in p0)
+    for g in got:
+        print(f"scale (b) rank {g['rank']} of 2 on {g['backend']} (one "
+              f"card): collectives on CUDA tensors {g['collectives_on_cuda']}"
+              f"; launches {g['launches']}; K1 vs plain max |diff| "
+              f"{g['k1_max_abs_err']:.3g}, K2 {g['k2_max_abs_err']:.3g}; "
+              f"metrics {g['metrics']}")
+    print(f"scale (b): parameters bit-identical across the ranks: {same} "
+          f"({time.time() - t1:.1f} s)")
+    if not same or any(g["k1_max_abs_err"] != 0 or g["k2_max_abs_err"] != 0
+                       or g["launches"]["state_step"] != 128
+                       or g["launches"]["blob_render"] != 128
+                       or g["collectives_on_cuda"]["all_reduce_value"] != 3
+                       for g in got):
+        raise AssertionError("scale (b): ranks differ, a kernel differs "
+                             "from its plain version, or a launch count "
+                             "or a collective is wrong")
+
+    # (c) the trainer: 2 iterations with a snapshot each, resumed for a
+    # third, against 3 uninterrupted
+    base = ["--fused", "--map", "loop_obstacles", "--envs", "4096",
+            "--size", "64", "--rollout", "128", "--log-every", "1"]
+    ck_a, ck_c = os.path.join(out_dir, "ck_a"), os.path.join(out_dir, "ck_c")
+    t1 = time.time()
+    outs = [run_det(["train", *base, "--iters", "2", "--ckpt", ck_a,
+                     "--ckpt-every", "1"], 600),
+            run_det(["train", *base, "--iters", "3", "--ckpt", ck_a,
+                     "--resume", ck_a], 600),
+            run_det(["train", *base, "--iters", "3", "--ckpt", ck_c], 600)]
+    reports = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    fa, fc = checkpoint.restore_any(ck_a), checkpoint.restore_any(ck_c)
+    err = max(float((fa["net"][k] - fc["net"][k]).abs().max())
+              for k in fc["net"])
+    size = os.path.getsize(os.path.join(checkpoint.resolve(ck_a),
+                                        checkpoint.FILE))
+    n_save = 2  # the report's saves: iterations 1 and 2 (the final save
+    # follows the report)
+    print(f"scale (c) train_ppo.main --fused at the bench config: 2 "
+          f"iterations with --ckpt-every 1, then --resume for a third, "
+          f"against 3 uninterrupted ({time.time() - t1:.1f} s in 3 "
+          f"processes): resumed at iter {fa['it'] - 1} -> {fa['it']}, "
+          f"parameters max |diff| {err:.3g}; checkpoint {size} bytes; save "
+          f"{reports[0]['checkpoint']['seconds'] / n_save:.3f} s each "
+          f"(of {n_save}), restore {reports[1]['restore']['seconds']:.3f} "
+          f"s; resumed run {reports[1]}")
+    if not (fa["it"] == fc["it"] == 3 and err == 0 and
+            "resumed from" in outs[1]):
+        raise AssertionError("scale (c): the resumed run differs from the "
+                             "uninterrupted one")
+    print(f"scale phase: {time.time() - t0:.1f} s")
     return rows
 
 
@@ -2119,6 +2451,9 @@ def main():
 
     # ---- the throughput probe (K5) --------------------------------------------------
     kernels += probe_phase(dev, smi)
+
+    # ---- training at scale: ranks, checkpoints, resume -------------------------------
+    kernels += scale_phase(dev, smi, TRAIN_B)
     print(f"total wall {time.time() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
@@ -2128,5 +2463,22 @@ def main():
     return 0
 
 
+def sub_main(argv):
+    """The processes that phase 11 starts: ``--det world1`` and ``--det
+    train <trainer flags>`` under the deterministic settings, and
+    ``--scale-rank <dir>`` as one of (b)'s two ranks."""
+    if argv[0] == "--det":
+        set_deterministic()
+        if argv[1] == "world1":
+            det_world1()
+        else:  # (c): the trainer itself
+            from dtown_torch.train_ppo import main as train_main
+
+            train_main(argv[2:])
+    else:
+        scale_rank(argv[1])
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sub_main(sys.argv[1:]) if sys.argv[1:] else main())

@@ -22,17 +22,26 @@ from dtown_torch.map_loader import list_maps, load_map, stack_maps
 from dtown_torch.ops.fused_env import make_fused_nav_rollout, \
     make_fused_rollout
 from dtown_torch.render.objmesh import register_custom_object
-from dtown_torch.types import EnvConfig, EnvState, StepOutput
+from dtown_torch.types import EnvConfig, EnvState, MapArrays, StepOutput
 
-__all__ = ["EnvConfig", "EnvState", "StepOutput", "load_map", "make",
-           "make_fused_nav_rollout", "make_fused_rollout", "make_vec",
-           "register_custom_object", "registered_ids", "stack_maps"]
+__all__ = ["EnvConfig", "EnvState", "MapArrays", "StepOutput", "load_map",
+           "make", "make_fused_nav_rollout", "make_fused_rollout",
+           "make_vec", "register_custom_object", "register_gymnasium",
+           "registered_ids", "stack_maps"]
 
 
 def registered_ids():
     """Env ids mirroring the reference's ``Duckietown-<map>-v0`` registry,
     plus ``MultiMap-v0``."""
     return [f"Duckietown-{m}-v0" for m in list_maps()] + ["MultiMap-v0"]
+
+
+def register_gymnasium():
+    """Register ``dtown_torch/Duckietown-<map>-v0`` for every map with
+    gymnasium (imported here: it is optional); returns the ids."""
+    from dtown_torch.gymnasium_compat import register_gymnasium as _reg
+
+    return _reg()
 
 
 def make(id_or_map: str = None, **kwargs):

@@ -253,13 +253,14 @@ def reset_from_draws(cfg, maps, idxs, duckie_noise, rand=None,
 
 
 def reset(cfg, maps, generator: torch.Generator, num_envs: int,
-          n_ok: int | None = None) -> EnvState:
+          n_ok: int | None = None, offset: int = 0) -> EnvState:
     """Fresh episode states of ``num_envs`` envs, drawn from ``generator``
     (a torch.Generator on the map's device) on that device. ``n_ok`` is
     bank_accept_count(cfg, maps), counted here when None.
 
-    On a stack of maps env b lives on member b % n_maps
-    (initial_map_indices): it spawns on that member with its own bank,
+    On a stack of maps env b lives on member (offset + b) % n_maps
+    (initial_map_indices; ``offset`` is the batch's first global index
+    when it is one rank's slice): it spawns on that member with its own bank,
     carries its NPCs and takes its randomization draw on the stack's
     padded grid (dtown.env.reset with select_map)."""
     dev = maps.obj_pos.device
@@ -267,7 +268,7 @@ def reset(cfg, maps, generator: torch.Generator, num_envs: int,
         raise ValueError(f"the generator is on {generator.device}, the map "
                          f"on {dev}: draws stay on the state's device")
     if maps.is_stack:
-        idx = initial_map_indices(maps, num_envs, dev)
+        idx = initial_map_indices(maps, num_envs, dev, offset)
         out = None
         for m in range(maps.n_maps):
             st = reset(cfg, maps.map_at(m), generator, num_envs)
@@ -486,15 +487,17 @@ def step_batch(cfg, maps, states, actions, generator=None, pack=None,
 # Vectorized convenience API
 # ---------------------------------------------------------------------------
 
-def initial_map_indices(maps, num_envs: int, device):
-    """Per-env map index on ``device``: env b on member b % n_maps of a
-    stack (a sticky round-robin curriculum), all zeros on a single map."""
-    return torch.arange(num_envs, dtype=torch.int32,
+def initial_map_indices(maps, num_envs: int, device, offset: int = 0):
+    """Per-env map index on ``device``: env b on member (offset + b) %
+    n_maps of a stack (a sticky round-robin curriculum over the global
+    env index; ``offset`` is a rank slice's first), all zeros on a single
+    map."""
+    return torch.arange(offset, offset + num_envs, dtype=torch.int32,
                         device=device) % maps.n_maps
 
 
 def make_vec_env(cfg: EnvConfig, maps: MapArrays, num_envs: int,
-                 device="cuda"):
+                 device="cuda", env_offset: int = 0):
     """(v_reset, v_step) over a batch of ``num_envs`` envs on ``device``.
 
     v_reset(generator) -> EnvState: fresh states drawn from ``generator``
@@ -508,7 +511,9 @@ def make_vec_env(cfg: EnvConfig, maps: MapArrays, num_envs: int,
     row-render pack (``v_step.pack``: None unless RGB with
     ``renderer="pallas"`` on one map) and its host facts
     (``v_step.facts``). The map's static branches are decided here,
-    once."""
+    once. ``env_offset`` is the global index of the batch's first env when
+    the batch is one rank's slice (parallel.make_sharded_env): on a stack
+    env b starts on member (env_offset + b) % n_maps."""
     dev = resolve_device(device)
     check_scope(cfg, maps)
     maps_d = maps.to(dev)
@@ -518,7 +523,8 @@ def make_vec_env(cfg: EnvConfig, maps: MapArrays, num_envs: int,
 
     def v_reset(generator: torch.Generator) -> EnvState:
         batch["generator"] = generator
-        return reset(cfg, maps_d, generator, num_envs, facts.n_ok)
+        return reset(cfg, maps_d, generator, num_envs, facts.n_ok,
+                     env_offset)
 
     def v_step(states, actions):
         gen = batch.get("generator")

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dtown_torch.device import resolve_device
 from dtown_torch.learn.networks import ActorCritic
@@ -89,6 +90,25 @@ def clip_by_global_norm_(params, max_norm: float):
     for x in grads:
         x.copy_(torch.where(keep, x, x / g * max_norm))
     return g
+
+
+def pmean_grads_(params, group):
+    """jax.lax.pmean of the parameters' gradients over the ranks of
+    ``group`` (a torch.distributed process group), in place: one
+    all_reduce (a sum) of the flattened gradients, then a division by the
+    world size. Every rank ends with the same bits."""
+    if not dist.is_initialized():
+        raise RuntimeError("sharded training needs an initialised "
+                           "torch.distributed process group "
+                           "(parallel.make_mesh)")
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat = flat / dist.get_world_size(group)
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
 
 
 def log_prob(action, mean, log_std):
@@ -188,11 +208,13 @@ def collect(net, noise, env_states, obs, step, obs_from):
 
 
 def update(ts: TrainState, traj, advantages, returns, perms,
-           ppo: PPOConfig, obs_from):
+           ppo: PPOConfig, obs_from, group=None):
     """The clipped-surrogate update: for each permutation of the T*B
     transitions in ``perms`` [epochs, T*B], ``ppo.minibatches`` steps of
     global-norm clipping and Adam on consecutive slices of it; obs_from
-    maps the trajectory's raw observations to the network's input.
+    maps the trajectory's raw observations to the network's input. With a
+    process ``group`` each minibatch's gradients are averaged over its
+    ranks before the clip (the reference's pmean before tx.update).
     Returns (ts, the epochs' mean losses [epochs])."""
     T, B = traj["reward"].shape
     n = T * B
@@ -211,29 +233,26 @@ def update(ts: TrainState, traj, advantages, returns, perms,
             loss, _ = ppo_loss(ts.net, batch, ppo)
             ts.opt.zero_grad()
             loss.backward()
+            if group is not None:
+                pmean_grads_(params, group)
             clip_by_global_norm_(params, ppo.max_grad_norm)
             ts.opt.step()
             losses.append(loss.detach())
     return ts, torch.stack(losses).reshape(len(perms), -1).mean(1)
 
 
-def refuse_sharding(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sharded training (the reference's pmean over a mesh axis) "
-            "needs torch.distributed, which the port does not have yet")
-
-
 def _train_step(ppo, num_envs, dev, rollout, obs_from, nav):
     """train_step over a rollout(ts, noise) -> (ts, traj, last_value)."""
     gae_fn = lambda traj, last_value: gae(traj, last_value, ppo)
-    update_fn = lambda ts, traj, adv, ret, perms: update(
-        ts, traj, adv, ret, perms, ppo, obs_from)
+    update_fn = lambda ts, traj, adv, ret, perms, group=None: update(
+        ts, traj, adv, ret, perms, ppo, obs_from, group)
 
     def train_step(ts: TrainState, axis_name=None):
         """One PPO iteration; returns (ts, metrics of 0-d tensors: loss,
-        mean_reward, done_frac and, under Nav, goal_frac)."""
-        refuse_sharding(axis_name)
+        mean_reward, done_frac and, under Nav, goal_frac). ``axis_name``
+        is the process group whose ranks average every minibatch's
+        gradients (parallel.make_sharded_ppo passes it); None trains
+        alone. The metrics are this rank's own."""
         T, n = ppo.rollout_len, ppo.rollout_len * num_envs
         noise = torch.randn((T, num_envs, 2), generator=ts.generator,
                             device=dev)
@@ -242,7 +261,7 @@ def _train_step(ppo, num_envs, dev, rollout, obs_from, nav):
                              for _ in range(ppo.epochs)])
         ts, traj, last_value = rollout(ts, noise)
         adv, ret = gae_fn(traj, last_value)
-        ts, losses = update_fn(ts, traj, adv, ret, perms)
+        ts, losses = update_fn(ts, traj, adv, ret, perms, axis_name)
         metrics = dict(loss=losses.mean(),
                        mean_reward=traj["reward"].mean(),
                        done_frac=traj["done"].to(torch.float32).mean())

@@ -59,8 +59,8 @@ def make_ppo_rnn(cfg, maps, num_envs: int, ppo: P.PPOConfig = P.PPOConfig(),
     train_step(ts) -> (ts, metrics); metrics add mean_ratio, which is 1
     exactly when the replay reproduces the rollout's logp (lr = 0). The
     pieces hang on train_step: rollout(ts, noise) -> (ts, traj,
-    last_value, carry0), .gae, update(ts, traj, adv, ret, carry0, perms)
-    with perms [epochs, num_envs]."""
+    last_value, carry0), .gae, update(ts, traj, adv, ret, carry0, perms,
+    group=None) with perms [epochs, num_envs]."""
     if num_envs % ppo.minibatches:
         raise ValueError(f"num_envs={num_envs} must divide into "
                          f"ppo.minibatches={ppo.minibatches} env groups")
@@ -99,19 +99,22 @@ def make_ppo_rnn(cfg, maps, num_envs: int, ppo: P.PPOConfig = P.PPOConfig(),
         return (ts._replace(env_states=states, carry=carry), traj,
                 last_value, ts.carry)
 
-    def update(ts: RNNTrainState, traj, advantages, returns, carry0, perms):
-        group = num_envs // ppo.minibatches
+    def update(ts: RNNTrainState, traj, advantages, returns, carry0, perms,
+               group=None):
+        size = num_envs // ppo.minibatches
         data = dict(traj, adv=advantages, ret=returns)
         params = list(ts.net.parameters())
         losses, ratios = [], []
         for perm in perms:
             for m in range(ppo.minibatches):
-                idx = perm[m * group:(m + 1) * group]
+                idx = perm[m * size:(m + 1) * size]
                 seq = {k: v[:, idx] for k, v in data.items()}
                 loss, ratio = rnn_loss(ts.net, seq,
                                        tuple(c[idx] for c in carry0), ppo)
                 ts.opt.zero_grad()
                 loss.backward()
+                if group is not None:
+                    P.pmean_grads_(params, group)
                 P.clip_by_global_norm_(params, ppo.max_grad_norm)
                 ts.opt.step()
                 losses.append(loss.detach())
@@ -123,7 +126,8 @@ def make_ppo_rnn(cfg, maps, num_envs: int, ppo: P.PPOConfig = P.PPOConfig(),
     gae_fn = lambda traj, last_value: P.gae(traj, last_value, ppo)
 
     def train_step(ts: RNNTrainState, axis_name=None):
-        P.refuse_sharding(axis_name)
+        """One iteration; ``axis_name`` is the process group that averages
+        the gradients (as make_ppo's train_step)."""
         noise = torch.randn((ppo.rollout_len, num_envs, 2),
                             generator=ts.generator, device=dev)
         perms = torch.stack([torch.randperm(num_envs, generator=ts.generator,
@@ -131,7 +135,8 @@ def make_ppo_rnn(cfg, maps, num_envs: int, ppo: P.PPOConfig = P.PPOConfig(),
                              for _ in range(ppo.epochs)])
         ts, traj, last_value, carry0 = rollout(ts, noise)
         adv, ret = gae_fn(traj, last_value)
-        ts, losses, ratios = update(ts, traj, adv, ret, carry0, perms)
+        ts, losses, ratios = update(ts, traj, adv, ret, carry0, perms,
+                                    axis_name)
         return ts, dict(loss=losses.mean(),
                         mean_reward=traj["reward"].mean(),
                         done_frac=traj["done"].to(torch.float32).mean(),

@@ -18,17 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from dtown import types as jtypes
-from dtown.render import objmesh as jobj
-
 import dtown_torch
 from dtown_torch import EnvConfig, make_fused_rollout, map_loader
-from dtown_torch import types as T
 from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import blob_raster as br
-from dtown_torch.render import objmesh
 
 from test_objmesh import _write_sample
+from test_torch_objmesh import register_sample_kinds
 
 B, S = 8, 32
 KIND = "duckhouse_torch_cull"
@@ -50,24 +46,31 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def tri_map(tmp_path_factory):
+def registered_tri_map(tmp_dir):
     """loop_obstacles with the sample mesh of tests/test_objmesh.py inside
-    the loop, registered as KIND in both packages (kinds registered in
-    dtown by other test files of this process first, so the two kind lists
-    stay aligned)."""
+    the loop, registered as KIND in both packages (the kinds that other
+    test files of this process registered in dtown first, so the two kind
+    lists stay aligned). A generator: it yields the compiled map, then
+    puts every registry back as it was (a kind left registered would make
+    a later test of this process, tests/test_native.py's bake of the
+    shipped kinds, see one kind too many)."""
     import yaml
 
-    path = _write_sample(tmp_path_factory.mktemp("cull"))
-    for k in jtypes.OBJ_KINDS[len(T.OBJ_KINDS):]:
-        objmesh.register_custom_object(k, path)
-    jobj.register_custom_object(KIND, path)
-    dtown_torch.register_custom_object(KIND, path)
-    with open(f"{map_loader.MAPS_DIR}/loop_obstacles.yaml") as f:
-        data = yaml.safe_load(f)
-    data["objects"].append({"kind": KIND, "pos": [1.5, 1.5], "rotate": 90,
-                            "height": 0.2, "static": True})
-    return map_loader.compile_map(data)
+    restore = register_sample_kinds(_write_sample(tmp_dir), KIND)
+    try:
+        with open(f"{map_loader.MAPS_DIR}/loop_obstacles.yaml") as f:
+            data = yaml.safe_load(f)
+        data["objects"].append({"kind": KIND, "pos": [1.5, 1.5],
+                                "rotate": 90, "height": 0.2,
+                                "static": True})
+        yield map_loader.compile_map(data)
+    finally:
+        restore()
+
+
+@pytest.fixture(scope="module")
+def tri_map(tmp_path_factory):
+    yield from registered_tri_map(tmp_path_factory.mktemp("cull"))
 
 
 def _posed(blob, pk, seed):

@@ -75,8 +75,8 @@ def _registries():
             (meshes._PRIMS, meshes), (meshes.TRI_MESHES, meshes)]
 
 
-def register_sample_kinds(path):
-    """Register the sample mesh at ``path`` as KIND in both packages, the
+def register_sample_kinds(path, kind=KIND):
+    """Register the sample mesh at ``path`` as ``kind`` in both packages, the
     kinds that other test files of this process registered in dtown in
     the port first (so that the two kind lists stay aligned). Returns
     restore(), which puts every registry back as it was, in place (other
@@ -98,10 +98,10 @@ def register_sample_kinds(path):
         meshes.prim_tables.cache_clear()
 
     for k in jtypes.OBJ_KINDS[len(T.OBJ_KINDS):]:
-        if k != KIND:
+        if k != kind:
             objmesh.register_custom_object(k, path)
-    jobj.register_custom_object(KIND, path)
-    dtown_torch.register_custom_object(KIND, path)
+    jobj.register_custom_object(kind, path)
+    dtown_torch.register_custom_object(kind, path)
     return restore
 
 

@@ -73,7 +73,9 @@ def test_step_path_iteration_matches_reference():
 
 def test_step_path_refusals():
     """The step path's PPO takes the default renderer="xla" (the XLA
-    ray-caster) and refuses sharding."""
+    ray-caster); sharded training (a process group in axis_name) needs
+    torch.distributed initialised (tests/test_torch_shard.py trains
+    over ranks)."""
     cfg = EnvConfig(camera_width=32, camera_height=32)  # renderer="xla"
     init, train = tppo.make_ppo(cfg, load_map("small_loop"), 8,
                                 tppo.PPOConfig(rollout_len=2, epochs=1,
@@ -81,10 +83,12 @@ def test_step_path_refusals():
     ts = init(torch.Generator().manual_seed(0))
     _, metrics = train(ts)
     assert np.isfinite(float(metrics["loss"]))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        _, train = tppo.make_ppo(EnvConfig(obs_type="state"),
-                                 load_map("small_loop"), 8, device="cpu")
-        train(None, axis_name="envs")
+    init, train = tppo.make_ppo(EnvConfig(obs_type="state"),
+                                load_map("small_loop"), 8,
+                                tppo.PPOConfig(rollout_len=2, epochs=1,
+                                               minibatches=2), device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        train(init(torch.Generator().manual_seed(0)), axis_name="envs")
 
 
 def test_rnn_replay_reproduces_rollout_logp():

@@ -1,6 +1,7 @@
 """The trainer's entry point, python -m dtown_torch.train_ppo (the
 counterpart of scripts/train_ppo.py), on the CPU at a tiny size: its
-per-iteration metric lines, each learner it selects, and its refusals."""
+per-iteration metric lines, each learner it selects, and its refusals.
+Checkpoints and resume: tests/test_torch_train_resume.py."""
 import json
 import os
 import subprocess
@@ -34,11 +35,14 @@ def test_trainer_prints_metric_lines(flags, keys, capsys):
 
 
 @pytest.mark.parametrize("flags,err", [
-    (["--ckpt", "ck"], NotImplementedError),
-    (["--resume", "ck"], NotImplementedError),
+    (["--ckpt-every", "1"], SystemExit),
+    (["--resume", "no_such_checkpoint"], FileNotFoundError),
     (["--nav"], ValueError),
     (["--rnn", "--fused"], ValueError)])
-def test_trainer_refusals(flags, err):
+def test_trainer_refusals(flags, err, tmp_path, monkeypatch):
+    """--ckpt-every without --ckpt, a --resume of nothing, Nav off the
+    fused path and the recurrent learner on it."""
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(err):
         train_ppo.main(TINY + flags)
 

@@ -11,7 +11,8 @@ the step path, the gym env, the fused rollout past its render plan),
 trains the PPO learner (dtown_torch.learn) on the fused rollout and the
 step path, then data-parallel over ranks with checkpoints and resume
 (dtown_torch.parallel, dtown_torch.train_ppo), runs the float32/bfloat16
-throughput probe, and prints what it measured.
+throughput probe and the measurement tools (python -m dtown_torch.bench
+and the others), and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -163,7 +164,21 @@ Phases (any failure exits non-zero and prints no result):
      (max |diff| 0), with the checkpoint's size and the seconds to save
      and restore. The parent built the kernels (phase 2), so the ranks
      and processes load them and build nothing.
-Needs CUDA; imports nothing of JAX.
+  12. the measurement tools (tools_phase), through their entry functions
+     at full width, each step with kernels counting its own launches
+     (every kernel it runs must launch): (a) python -m dtown_torch.bench
+     at its defaults (K1 + K2), its env-steps/s within 0.5-2x of the same
+     configuration's fused rate in phase 4 of this run (the "bench"
+     cell); (b) bench --obs state (K1; printed only, host-bound); (c)
+     bench --no-fused --renderer pallas --iters 32 (K3); (d) perf_probe
+     at its defaults, full >= max(state, render); (e) bench_profile on udem1, 1024
+     envs 64x64 (the step path's eight phases; no kernel); (f)
+     roofline_objpass on udem1, 4096 envs (K2), its gap to the
+     instruction bound >= 1.0; (g) benchmark --steps 50 (the gym env at
+     640x480); (h) dtown_torch.native's compiler against map_loader on
+     every shipped map, and native/libdtown_mapc.so unchanged.
+Needs CUDA; imports nothing of JAX. K2's counts and the card's peaks are
+dtown_torch/roofline.py's.
 """
 import json
 import os
@@ -171,19 +186,10 @@ import subprocess
 import sys
 import time
 
-REPO = os.path.dirname(os.path.abspath(__file__))
+from dtown_torch.device import nvidia_smi_line
+from dtown_torch.roofline import PEAK_BF16, bound, k2_ops
 
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores, which counts an FMA as two.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# Both kernels build with -fmad=false, so every add or mul is an
-# instruction of its own: the float32 lanes issue PEAK_F32 / 2 of them a
-# second. Integer, compare and select instructions issue on lanes no wider,
-# so counted instructions over this rate is still the least time.
-PEAK_INSTR = PEAK_F32 / 2
-# dense bf16 tensor-core FLOP/s (the same datasheet): the learner's share
-PEAK_BF16 = 989e12
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Instruction counts per unit of work, counted by hand from the kernel
 # sources (arithmetic, compare and select instructions; a sqrt, divide or
@@ -201,28 +207,6 @@ K1_OPS_MAP_GATE = 2       # a stack's map test of one object column
 K1_OPS_NAV = 10           # the goal check (two floors, compares, bonus)
 K1_OPS_NAV_SHAPING = 20   # the goal-distance shaping term
 K1_OPS_RESET_GOAL = K1_OPS_HASH + 8          # the goal redraw
-K2_OPS_PIXEL = 150        # camera, ground hit, tile shading, sky, output
-K2_OPS_DR_PIXEL = 50      # DR: NDC table, ray basis, 1/sqrt, ground divide,
-                          # variant hash
-K2_OPS_BOUND = 10         # a kept object's bounding-sphere test (record
-                          # load, b = oc . d, compares)
-K2_OPS_BOX_PIXEL = 20     # a box or triangle object's ray in model space,
-                          # inverses, where its bounding sphere is met
-K2_OPS_BOX = 40           # one box primitive (2 record loads, slabs from
-                          # the per-env offsets, shading, fold)
-K2_OPS_SPHERE = 26        # one sphere primitive (2 loads, b, disc, root,
-                          # light term, fold)
-K2_OPS_TRI = 62           # one triangle: 5 loads, Moeller-Trumbore's per-ray
-                          # half (pvec, det, 1/det, u, v, t), tests, flat
-                          # two-sided shading, fold
-# once per env (the kernel's per-block prologue; the bound counts it once
-# per env, not once per block)
-K2_OPS_OBJECT = 8         # distance, optional-bit and half-plane culls
-K2_OPS_BOX_ENV = 12       # a kept box object's eye in model space
-K2_OPS_PRIM_ENV = 12      # a kept primitive's per-env record (slab offsets,
-                          # sphere terms, tvec/qvec), LOD cull
-K2_OPS_NPC_OBJECT = 60    # an NPC's pose, wiggle, sincos, light rotation
-K2_OPS_MAP = 2            # a stack's map test of one object
 
 # BASELINE config 5's maps and scripts/bench_all.sh's 6-map curriculum
 STACK3 = ["zigzag_dists", "4way", "udem1"]
@@ -276,14 +260,6 @@ Kd 0.7 0.5 0.3
 newmtl roof
 Kd 0.8 0.1 0.1
 """
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def ptxas_report(log):
@@ -489,13 +465,6 @@ def posed_states(states, maps, seed):
     pos[:, 2] = opos[:, 2] + d * torch.sin(a)
     angle = torch.where(b % 2 == 0, a, a + math.pi)
     return states.replace(pos=pos, angle=angle)
-
-
-def bound(nbytes, nops):
-    """The least time (ms) for nbytes of traffic and nops instructions,
-    and which of the two sets it."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_INSTR * 1e3
-    return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
 def _wrappers():
@@ -707,56 +676,6 @@ def row_kernel_check(run, dev):
           f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {nops:.4g} ops; "
           f"pixels covered by an object {float(covered.sum()):.6g})")
     return max(err, err_p), plain_ms, b_ms, b_by
-
-
-def k2_ops(blob, pk, P):
-    """Operations the render needs on this blob: per pixel the ground pass
-    (and, under domain randomization, the per-pixel ray and variant hash),
-    the bounding-sphere test of each object its env keeps, and the ray
-    tests of a kept object's kept primitives on the pixels whose rays meet
-    its bounding sphere; by the kernel's own culls (blob_raster.kept: the
-    map, distance, optional-bit, NPC half-plane and, when pk["view"], view
-    culls, then the LOD culls; blob_raster.sphere_pass, counted on the
-    card in slices of envs). Once per env each object's culls, a kept box's
-    eye in model space, a kept primitive's per-env record, and a moving
-    NPC's pose and light rotation (culled or not). On a stack an env pays
-    one map test per object and the rest only for its own map's
-    objects."""
-    import torch
-    from dtown_torch.ops import state_kernel as sk
-    from dtown_torch.render import blob_raster as br
-
-    oi, pi = pk["oi"].cpu(), pk["pi"].cpu()
-    b = blob.cpu()
-    keep_o, keep_p = (m.double() for m in br.kept(b, pk))
-    B, n_o = b.shape[1], pk["n_objs"]
-    hits = torch.zeros((B, n_o), dtype=torch.float64)
-    n = max(1, (1 << 24) // (P * max(n_o, 1)))
-    for i in range(0, B, n):
-        hits[i:i + n] = br.sphere_pass(
-            blob[:, i:i + n].contiguous(), pk).sum(2).double().cpu()
-    per_env = torch.full((B,), float(
-        K2_OPS_PIXEL + (K2_OPS_DR_PIXEL if pk["dr"] else 0)) * P,
-        dtype=torch.float64)
-    stack = pk["n_maps"] > 1
-    mid = b[sk.F_MAPID].to(torch.int64)
-    cost_of = {br.SPHERE_T: K2_OPS_SPHERE, br.BOX_T: K2_OPS_BOX,
-               br.TRI_T: K2_OPS_TRI}
-    for o in range(n_o):
-        own = (mid == int(oi[o, br.OI_MAP])).double() if stack else 1.0
-        if stack:
-            per_env += K2_OPS_MAP
-        if int(oi[o, br.OI_NPC]) >= 0:
-            per_env += own * K2_OPS_NPC_OBJECT
-        per_env += own * K2_OPS_OBJECT + keep_o[:, o] * K2_OPS_BOUND * P
-        if oi[o, br.OI_MODEL]:
-            per_env += keep_o[:, o] * K2_OPS_BOX_ENV
-            per_env += hits[:, o] * K2_OPS_BOX_PIXEL
-        p0, n_p = int(oi[o, br.OI_P0]), int(oi[o, br.OI_NP])
-        for j in range(p0, p0 + n_p):
-            per_env += keep_p[:, j] * (K2_OPS_PRIM_ENV + hits[:, o]
-                                       * cost_of[int(pi[j, br.PI_TYPE])])
-    return float(per_env.sum())
 
 
 def k1_ops(blob_out, st):
@@ -1117,6 +1036,11 @@ def held_rows(tag, blob, actions, st, pk, launches, dev_ms, k1_err=0.0,
     return rows
 
 
+# each fused cell's env-steps/s in this run, beside which the tools phase
+# prints the bench's
+FUSED_RATE = {}
+
+
 def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
                 check=None, **kw):
     """One configuration of the fused rollout on the card: the state
@@ -1229,6 +1153,7 @@ def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
     launches = read_counts()
     ms = start.elapsed_time(end)
     rate = B * n_timed / (ms / 1e3)
+    FUSED_RATE[tag] = rate
     _, out, obs = fused_step(blob, actions)
     torch.cuda.synchronize()
     print(f"{tag}: fused {'Nav ' if nav else ''}rollout {name} {kw} "
@@ -2316,6 +2241,135 @@ def surface_phase(dev, smi):
     return rows
 
 
+# ---- phase 12: the measurement tools -----------------------------------------------
+
+def tool_launches(tag, fn, kernels):
+    """fn() with every launch count set to 0 just before it; fails unless
+    each of ``kernels`` launched in it. Returns fn's result."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"tools {tag}: launches {launches}")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"tools {tag}: {missing} never launched")
+    return out
+
+
+def native_maps_check():
+    """(h): dtown_torch.native on every shipped map against the port's
+    python compiler, at tests/test_torch_native.py's bars (grids, curve
+    masks, object kinds and packed tile words equal; curves and object
+    fields within 1e-6), and native/libdtown_mapc.so unchanged."""
+    import hashlib
+    import numpy as np
+    from dtown_torch import map_loader, native
+    from dtown_torch.render.blob_raster import pack_tile_words
+
+    tracked = os.path.join(REPO, "native", "libdtown_mapc.so")
+
+    def sha():
+        with open(tracked, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before = sha()
+    t0 = time.time()
+    lib = native.build_library()
+    print(f"tools (h): native library built in {time.time() - t0:.1f} s "
+          f"({os.path.relpath(lib, REPO)})")
+    bad = {}
+    names = map_loader.list_maps()
+    for name in names:
+        nat = native.compile_map_native(
+            os.path.join(map_loader.MAPS_DIR, f"{name}.yaml"))
+        py = map_loader.load_map(name)
+        M = int(nat["n_objects"])
+        words = np.asarray(pack_tile_words(py.tile_kind, py.tile_angle),
+                           np.int64).astype(np.int32)
+        errs = [f for f in ("tile_kind", "tile_angle", "drivable",
+                            "curve_mask") if not np.array_equal(
+            nat[f], getattr(py, f))]
+        errs += [f for f in ("obj_pos", "obj_y_rot", "obj_scale",
+                             "obj_corners", "obj_norms", "obj_safety_rad",
+                             "obj_halfdims", "obj_height", "obj_walk_dist")
+                 if not np.allclose(nat[f][:M], getattr(py, f)[:M],
+                                    rtol=0.0, atol=1e-6)]
+        if not np.allclose(nat["curves"], py.curves, rtol=0.0, atol=1e-6):
+            errs.append("curves")
+        if not (np.array_equal(nat["obj_kind"][:M], py.obj_kind[:M])
+                and np.array_equal(nat["obj_dynamic"][:M],
+                                   py.obj_is_dynamic[:M])):
+            errs.append("obj_kind/obj_dynamic")
+        if not np.array_equal(nat["tile_words"], words):
+            errs.append("tile_words")
+        if errs:
+            bad[name] = errs
+    same = sha() == before
+    print(f"tools (h): native map compiler vs map_loader on {len(names)} "
+          f"maps: mismatches {bad or 'none'}; native/libdtown_mapc.so "
+          f"unchanged {same}")
+    if bad or not same:
+        raise AssertionError("tools (h): the native map compiler disagrees "
+                             "with map_loader, or native/ was written")
+
+
+def tools_phase(dev, smi):
+    """The measurement tools (python -m dtown_torch.<tool>) through their
+    entry functions, each print prefixed "tools (x)": (a) bench at its
+    defaults, its rate within 0.5-2x of fused_phase's "bench" cell of
+    this run; (b) bench --obs state (printed only: host-bound); (c) bench
+    --no-fused --renderer pallas --iters 32 (K3); (d) perf_probe at its
+    defaults, full >= max(state, render); (e) bench_profile on
+    udem1, 1024 envs 64x64; (f) roofline_objpass on udem1, 4096 envs, its
+    gap >= 1.0; (g) benchmark --steps 50; (h) native_maps_check."""
+    from dtown_torch import EnvConfig, bench, bench_profile, benchmark, \
+        load_map, perf_probe, roofline_objpass
+
+    t0 = time.time()
+    print(f"tools phase on {smi}")
+    out = tool_launches("(a)", lambda: bench.run(bench.parse_args([])),
+                        ["state_step", "blob_render"])
+    ratio = out["value"] / FUSED_RATE["bench"]
+    print(f"tools (a) bench: {json.dumps(out)}; {ratio:.4f} of the fused "
+          f"cell's {FUSED_RATE['bench']:.6g} env-steps/s")
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError("tools (a): bench disagrees with fused_phase")
+    out = tool_launches("(b)", lambda: bench.run(bench.parse_args(
+        ["--obs", "state"])), ["state_step"])
+    print(f"tools (b) bench --obs state: {json.dumps(out)}")
+    out = tool_launches("(c)", lambda: bench.run(bench.parse_args(
+        ["--no-fused", "--renderer", "pallas", "--iters", "32"])),
+        ["row_render_static"])
+    print(f"tools (c) bench --no-fused: {json.dumps(out)}")
+    cfg = EnvConfig(obs_type="rgb", camera_width=64, camera_height=64,
+                    renderer="pallas")
+    rep = tool_launches("(d)", lambda: perf_probe.probe(
+        cfg, load_map("loop_obstacles"), 4096, 200, dev),
+        ["state_step", "blob_render"])
+    print(f"tools (d) perf_probe, ms/step: "
+          f"{json.dumps({k: v * 1e3 for k, v in rep.items()})}")
+    if rep["full"] < max(rep["state"], rep["render"]):
+        raise AssertionError("tools (d): full step below one of its parts")
+    res = bench_profile.profile(
+        EnvConfig(obs_type="rgb", camera_width=64, camera_height=64),
+        load_map("udem1"), 1024, 10, dev)
+    print(f"tools (e) bench_profile udem1 1024 envs, ms/iter: "
+          f"{json.dumps(res)}")
+    out = tool_launches("(f)", lambda: roofline_objpass.objpass(
+        "udem1", 4096, 64, 64, dev), ["blob_render"])
+    print(f"tools (f) roofline_objpass: {json.dumps(out)}")
+    if not out["value"] >= 1.0:
+        raise AssertionError("tools (f): object pass faster than its "
+                             "bound: the count is wrong")
+    out = benchmark.measure("udem1", 50, 640, 480, dev)
+    print(f"tools (g) benchmark: {json.dumps(out)}")
+    native_maps_check()
+    print(f"tools phase: {time.time() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2454,6 +2508,9 @@ def main():
 
     # ---- training at scale: ranks, checkpoints, resume -------------------------------
     kernels += scale_phase(dev, smi, TRAIN_B)
+
+    # ---- the measurement tools -----------------------------------------------------
+    tools_phase(dev, smi)
     print(f"total wall {time.time() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

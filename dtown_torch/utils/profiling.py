@@ -1,7 +1,8 @@
 """Tracing and phase timing.
 
 Counterpart of dtown/utils/profiling.py: a torch.profiler trace in place
-of the JAX trace, and wall-clock phase timers with steps/s.
+of the JAX trace, and wall-clock phase timers with steps/s; ``timed``
+times one call on the card with CUDA events (the measurement tools).
 """
 from __future__ import annotations
 
@@ -12,6 +13,31 @@ import time
 from typing import Dict
 
 import torch
+
+
+def timed(fn, device):
+    """(seconds, fn()) of one call of fn on ``device``: CUDA events around
+    the call on the card (after a synchronize, so earlier work is not
+    counted), the host clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3, out
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def median_timed(fn, device, reps=3):
+    """Median seconds of ``reps`` timed calls of fn on ``device``, after
+    one warm-up call."""
+    fn()
+    return sorted(timed(fn, device)[0] for _ in range(reps))[reps // 2]
 
 
 @contextlib.contextmanager

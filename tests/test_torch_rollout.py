@@ -82,7 +82,9 @@ def test_cuda_entry_point_raises_without_cuda():
 
 def test_port_imports_no_jax():
     """Every module of the port (the ray-caster, the gym and gymnasium
-    surfaces, the wrappers and the Nav task among them) and chip_smoke.py
+    surfaces, the wrappers, the Nav task, the native map compiler's
+    binding, the texture atlas and the measurement tools among them) and
+    chip_smoke.py
     import nothing of JAX or dtown; gymnasium, an optional extra that the
     card machine lacks, is imported by gymnasium_compat alone."""
     code = (
@@ -109,5 +111,5 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("[] [] "), out.stdout
     for m in ("raster", "gym_compat", "gymnasium_compat", "wrappers",
-              "tasks", "shading"):
+              "tasks", "shading", "native", "textures", "bench", "roofline"):
         assert f"'{m}'" in out.stdout, m

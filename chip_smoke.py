@@ -177,9 +177,13 @@ Phases (any failure exits non-zero and prints no result):
      instruction bound >= 1.0; (g) benchmark --steps 50 (the gym env at
      640x480); (h) dtown_torch.native's compiler against map_loader on
      every shipped map, and native/libdtown_mapc.so unchanged.
+Launch counts are the program's counters (dtown_torch.utils.profiling),
+reset and read around each counted run (counting()).
+
 Needs CUDA; imports nothing of JAX. K2's counts and the card's peaks are
 dtown_torch/roofline.py's.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -467,26 +471,22 @@ def posed_states(states, maps, seed):
     return states.replace(pos=pos, angle=angle)
 
 
-def _wrappers():
-    from dtown_torch import probes
-    from dtown_torch.ops import state_kernel as sk
-    from dtown_torch.render import blob_raster as br
-    from dtown_torch.render import row_raster as rr
-
-    return {"state_step": sk.state_step,
-            "blob_render": br.render_frames_from_blob,
-            "row_render_static": rr.row_render_static,
-            "row_render": rr.row_render, "fma_chain": probes.fma_chain}
+# the kernel wrappers' launch counters (dtown_torch.utils.profiling)
+KERNELS = ("state_step", "blob_render", "row_render_static", "row_render",
+           "fma_chain")
 
 
-def reset_counts():
-    """Set every kernel wrapper's launch count to 0."""
-    for fn in _wrappers().values():
-        fn.launches = 0
+@contextlib.contextmanager
+def counting():
+    """Yields a dict that holds each kernel's launches in the block once
+    it ends (the program's counters, reset at its start)."""
+    from dtown_torch.utils import profiling
 
-
-def read_counts():
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    launches = {}
+    profiling.reset_counters()
+    yield launches
+    got = profiling.counters()
+    launches.update({k: got.get("launches." + k, 0) for k in KERNELS})
 
 
 def card_and_cpu(cfg, map_name, B, n_steps, dev):
@@ -562,17 +562,16 @@ def vec_main_path(map_name, dev, smi, n_steps=256, **kw):
     for _ in range(8):                                   # warm-up
         states, out = v_step(states, actions)
     torch.cuda.synchronize()
-    reset_counts()  # counts of this path's run only
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    n_done = torch.zeros((), dtype=torch.int64, device=dev)
-    start.record()
-    for _ in range(n_steps):
-        states, out = v_step(states, actions)
-        n_done += out.done.sum()
-    end.record()
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with counting() as launches:  # counts of this path's run only
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        n_done = torch.zeros((), dtype=torch.int64, device=dev)
+        start.record()
+        for _ in range(n_steps):
+            states, out = v_step(states, actions)
+            n_done += out.done.sum()
+        end.record()
+        torch.cuda.synchronize()
     ms = start.elapsed_time(end)
     rate = B * n_steps / (ms / 1e3)
     print(f"vec step path, {map_name} {kw} {B} envs 64x64: {n_steps} steps in "
@@ -1143,14 +1142,13 @@ def fused_phase(tag, map_spec, dev, smi, B, size, n_timed, nav=False,
         device=dev).manual_seed(2), device=dev)
     blob, _, _ = rollout(blob, actions, 8)               # warm-up
     torch.cuda.synchronize()
-    reset_counts()  # counts of this path's run only
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    blob, _, _ = rollout(blob, actions, n_timed)
-    end.record()
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with counting() as launches:  # counts of this path's run only
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        blob, _, _ = rollout(blob, actions, n_timed)
+        end.record()
+        torch.cuda.synchronize()
     ms = start.elapsed_time(end)
     rate = B * n_timed / (ms / 1e3)
     FUSED_RATE[tag] = rate
@@ -1440,13 +1438,12 @@ def train_bench(dev, smi):
     ts = init(torch.Generator(device=dev).manual_seed(0))
     gen = ts.generator
     ts, _, _, _, _, warm = timed_iteration(train, ts, gen, ppo, B, dev)
-    reset_counts()  # counts of the timed iterations only
-    runs = []
-    for _ in range(3):
-        ts, traj, losses, r_ms, u_ms, it_ms = timed_iteration(
-            train, ts, gen, ppo, B, dev)
-        runs.append((r_ms, u_ms, it_ms))
-    launches = read_counts()
+    with counting() as launches:  # counts of the timed iterations only
+        runs = []
+        for _ in range(3):
+            ts, traj, losses, r_ms, u_ms, it_ms = timed_iteration(
+                train, ts, gen, ppo, B, dev)
+            runs.append((r_ms, u_ms, it_ms))
     peak = torch.cuda.max_memory_allocated()
     T = ppo.rollout_len
     raw = ts.env_states[1]
@@ -1519,12 +1516,11 @@ def train_nav(dev, smi):
                              fused=True, nav=True, goal_in_obs=True,
                              device=dev)
     ts = init(torch.Generator(device=dev).manual_seed(1))
-    reset_counts()
-    t0 = time.perf_counter()
-    ts, metrics = train(ts)
-    metrics = {k: float(v) for k, v in metrics.items()}
-    ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counts()
+    with counting() as launches:
+        t0 = time.perf_counter()
+        ts, metrics = train(ts)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        ms = (time.perf_counter() - t0) * 1e3
     print(f"train (c) fused Nav PPO nav_stack, {B} envs 64x64, goal in obs, "
           f"rollout 16: first iteration {ms:.1f} ms; metrics {metrics}; "
           f"launches {launches}")
@@ -1582,12 +1578,11 @@ def train_step_path(dev, smi):
     ts = init(torch.Generator(device=dev).manual_seed(2))
     ts, _ = train(ts)
     torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    ts, metrics = train(ts)
-    metrics = {k: float(v) for k, v in metrics.items()}
-    ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counts()
+    with counting() as launches:
+        t0 = time.perf_counter()
+        ts, metrics = train(ts)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        ms = (time.perf_counter() - t0) * 1e3
     print(f"train (e) step-path PPO, loop_obstacles {B} envs 64x64, rollout "
           f"{T}: {ms:.1f} ms = {T * B / (ms / 1e3):.6g} training "
           f"env-steps/s on {smi}; metrics {metrics}; launches {launches}")
@@ -1715,10 +1710,9 @@ def scale_rank(out_dir):
     _, init, train = make_sharded_ppo(cfg, dtown_torch.load_map(
         "loop_obstacles"), 128, P.PPOConfig(), mesh, fused=True)
     ts = init(0)
-    reset_counts()
-    ts, metrics = train(ts)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with counting() as launches:
+        ts, metrics = train(ts)
+        torch.cuda.synchronize()
     blob = ts.env_states[0]
     st, pk = train.local.fused_step.tables, train.local.fused_step.pack
     act = torch.tanh(torch.randn((blob.shape[1], 2), device=mesh.device,
@@ -1762,16 +1756,15 @@ def scale_timed(dev, smi, train_b):
         ts = init(0)
         ts, _ = train(ts)
         torch.cuda.synchronize()
-        reset_counts()
-        times = []
-        for _ in range(2):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            ts, metrics = train(ts)
-            ev[1].record()
-            torch.cuda.synchronize()
-            times.append(ev[0].elapsed_time(ev[1]))
-        launches = read_counts()
+        with counting() as launches:
+            times = []
+            for _ in range(2):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                ts, metrics = train(ts)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
         metrics = {k: float(v) for k, v in metrics.items()}
         params = list(ts.net.parameters())
         n_grad = sum(p.numel() for p in params)
@@ -1921,10 +1914,10 @@ def probe_phase(dev, smi):
     rows = []
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         kname = f"fma_chain_{tag}_kernel"
-        reset_counts()  # counts of the probe's run only
-        ms_iter, out = probes.run(dtype, torch.full(probes.SHAPE, 0.99,
-                                                    device=dev))
-        launches = read_counts()["fma_chain"]
+        with counting() as launches:  # counts of the probe's run only
+            ms_iter, out = probes.run(dtype, torch.full(probes.SHAPE, 0.99,
+                                                        device=dev))
+        launches = launches["fma_chain"]
         if launches <= 0 or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"probe {tag}: no launch or no output")
         y_k = probes.fma_chain(x, dtype)
@@ -2086,17 +2079,16 @@ def planless_phase(tag, maps, dev, smi, n_steps, held):
         blob, out, obs = fs(blob, actions)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()  # counts of this path's run only
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    n_done = torch.zeros((), dtype=torch.int64, device=dev)
-    start.record()
-    for _ in range(n_steps):
-        blob, out, obs = fs(blob, actions)
-        n_done += out.done.sum()
-    end.record()
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with counting() as launches:  # counts of this path's run only
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        n_done = torch.zeros((), dtype=torch.int64, device=dev)
+        start.record()
+        for _ in range(n_steps):
+            blob, out, obs = fs(blob, actions)
+            n_done += out.done.sum()
+        end.record()
+        torch.cuda.synchronize()
     ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"{tag}: fused planless, {B} envs 64x64: {n_steps} steps in "
@@ -2248,10 +2240,9 @@ def tool_launches(tag, fn, kernels):
     each of ``kernels`` launched in it. Returns fn's result."""
     import torch
 
-    reset_counts()
-    out = fn()
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with counting() as launches:
+        out = fn()
+        torch.cuda.synchronize()
     print(f"tools {tag}: launches {launches}")
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:

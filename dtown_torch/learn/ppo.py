@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from dtown_torch.device import resolve_device
 from dtown_torch.learn.networks import ActorCritic
+from dtown_torch.utils.profiling import span
 
 
 class PPOConfig(NamedTuple):
@@ -127,17 +128,18 @@ def gae(traj, last_value, ppo: PPOConfig):
     """Generalized advantage estimates and returns, each [T, B], of a
     trajectory's reward, done and value [T, B] and the value [B] of the
     observation after it; rewards scaled by ppo.reward_scale."""
-    adv = torch.empty_like(traj["value"])
-    acc = torch.zeros_like(last_value)
-    next_value = last_value
-    for t in reversed(range(adv.shape[0])):
-        live = 1.0 - traj["done"][t].to(torch.float32)
-        delta = (traj["reward"][t] * ppo.reward_scale
-                 + ppo.gamma * next_value * live - traj["value"][t])
-        acc = delta + ppo.gamma * ppo.gae_lambda * live * acc
-        adv[t] = acc
-        next_value = traj["value"][t]
-    return adv, adv + traj["value"]
+    with span("ppo.gae"):
+        adv = torch.empty_like(traj["value"])
+        acc = torch.zeros_like(last_value)
+        next_value = last_value
+        for t in reversed(range(adv.shape[0])):
+            live = 1.0 - traj["done"][t].to(torch.float32)
+            delta = (traj["reward"][t] * ppo.reward_scale
+                     + ppo.gamma * next_value * live - traj["value"][t])
+            acc = delta + ppo.gamma * ppo.gae_lambda * live * acc
+            adv[t] = acc
+            next_value = traj["value"][t]
+        return adv, adv + traj["value"]
 
 
 def surrogate(logp, batch, ppo: PPOConfig):
@@ -184,17 +186,21 @@ def collect(net, noise, env_states, obs, step, obs_from):
     obs, last_value); traj holds obs (raw, [T, B, ...], written in place),
     action, logp, value, reward [T, B] and done (bool [T, B])."""
     T, B = noise.shape[:2]
-    f32 = dict(dtype=torch.float32, device=noise.device)
-    traj = dict(
-        obs=tmap(lambda o: torch.empty((T,) + tuple(o.shape), dtype=o.dtype,
-                                       device=o.device), obs),
-        action=torch.empty((T, B, noise.shape[2]), **f32),
-        logp=torch.empty((T, B), **f32), value=torch.empty((T, B), **f32),
-        reward=torch.empty((T, B), **f32),
-        done=torch.empty((T, B), dtype=torch.bool, device=noise.device))
-    with torch.no_grad():
+    dev = noise.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    with span("ppo.rollout"), torch.no_grad():
+        traj = dict(
+            obs=tmap(lambda o: torch.empty((T,) + tuple(o.shape),
+                                           dtype=o.dtype, device=o.device),
+                     obs),
+            action=torch.empty((T, B, noise.shape[2]), **f32),
+            logp=torch.empty((T, B), **f32),
+            value=torch.empty((T, B), **f32),
+            reward=torch.empty((T, B), **f32),
+            done=torch.empty((T, B), dtype=torch.bool, device=dev))
         for t in range(T):
-            mean, log_std, value = net(obs_from(obs))
+            with span("ppo.policy", dev):
+                mean, log_std, value = net(obs_from(obs))
             action = mean + torch.exp(log_std) * noise[t]
             tmap(lambda buf, o: buf[t].copy_(o), traj["obs"], obs)
             traj["action"][t] = action
@@ -203,7 +209,8 @@ def collect(net, noise, env_states, obs, step, obs_from):
             env_states, out, obs = step(env_states, torch.tanh(action))
             traj["reward"][t] = out.reward
             traj["done"][t] = out.done
-        last_value = net(obs_from(obs))[2]
+        with span("ppo.policy", dev):
+            last_value = net(obs_from(obs))[2]
     return traj, env_states, obs, last_value
 
 
@@ -217,28 +224,33 @@ def update(ts: TrainState, traj, advantages, returns, perms,
     ranks before the clip (the reference's pmean before tx.update).
     Returns (ts, the epochs' mean losses [epochs])."""
     T, B = traj["reward"].shape
-    n = T * B
-    flat = dict(obs=tmap(lambda o: o.flatten(0, 1), traj["obs"]),
-                action=traj["action"].reshape(n, -1),
-                logp=traj["logp"].reshape(n), adv=advantages.reshape(n),
-                ret=returns.reshape(n))
-    mb = n // ppo.minibatches
-    params = list(ts.net.parameters())
-    losses = []
-    for perm in perms:
-        for m in range(ppo.minibatches):
-            idx = perm[m * mb:(m + 1) * mb]
-            batch = {k: tmap(lambda v: v[idx], v) for k, v in flat.items()}
-            batch["obs"] = obs_from(batch["obs"])
-            loss, _ = ppo_loss(ts.net, batch, ppo)
-            ts.opt.zero_grad()
-            loss.backward()
-            if group is not None:
-                pmean_grads_(params, group)
-            clip_by_global_norm_(params, ppo.max_grad_norm)
-            ts.opt.step()
-            losses.append(loss.detach())
-    return ts, torch.stack(losses).reshape(len(perms), -1).mean(1)
+    n, dev = T * B, traj["reward"].device
+    with span("ppo.update"):
+        flat = dict(obs=tmap(lambda o: o.flatten(0, 1), traj["obs"]),
+                    action=traj["action"].reshape(n, -1),
+                    logp=traj["logp"].reshape(n), adv=advantages.reshape(n),
+                    ret=returns.reshape(n))
+        mb = n // ppo.minibatches
+        params = list(ts.net.parameters())
+        losses = []
+        for perm in perms:
+            for m in range(ppo.minibatches):
+                with span("ppo.forward", dev):
+                    idx = perm[m * mb:(m + 1) * mb]
+                    batch = {k: tmap(lambda v: v[idx], v)
+                             for k, v in flat.items()}
+                    batch["obs"] = obs_from(batch["obs"])
+                    loss, _ = ppo_loss(ts.net, batch, ppo)
+                with span("ppo.backward", dev):
+                    ts.opt.zero_grad()
+                    loss.backward()
+                with span("ppo.optimizer", dev):
+                    if group is not None:
+                        pmean_grads_(params, group)
+                    clip_by_global_norm_(params, ppo.max_grad_norm)
+                    ts.opt.step()
+                losses.append(loss.detach())
+        return ts, torch.stack(losses).reshape(len(perms), -1).mean(1)
 
 
 def _train_step(ppo, num_envs, dev, rollout, obs_from, nav):

@@ -46,6 +46,7 @@ from dtown_torch.ops import state_kernel as sk
 from dtown_torch.render import blob_raster as br
 from dtown_torch.render import raster, row_raster
 from dtown_torch.types import EnvConfig, EnvState, tree_where
+from dtown_torch.utils.profiling import span
 
 _DEG2RAD = float(np.float32(np.pi / 180.0))
 
@@ -433,17 +434,23 @@ def _make_rollout(cfg, maps, num_envs, device, nav, goal_in_obs):
                          nav_goal=goal)
 
     def fused_step(blob, actions):
-        blob = sk.state_step(blob, actions, st)
-        if pk is not None:
-            obs = render_rgb_from_blob(cfg, maps_d, blob, pk)
-            if goal_in_obs:
-                obs = (obs, torch.stack(_goal_features(blob, navb, ts), -1))
-        else:
-            obs = state_obs_from_blob(blob)
-            if goal_in_obs:
-                obs = torch.cat([obs, torch.stack(
-                    _goal_features(blob, navb, ts), -1)], -1)
-        return blob, unpack_outputs(blob), obs
+        with span("fused_step"):
+            with span("state_step"):
+                blob = sk.state_step(blob, actions, st)
+            with span("render"):
+                if pk is not None:
+                    obs = render_rgb_from_blob(cfg, maps_d, blob, pk)
+                    if goal_in_obs:
+                        obs = (obs, torch.stack(
+                            _goal_features(blob, navb, ts), -1))
+                else:
+                    obs = state_obs_from_blob(blob)
+                    if goal_in_obs:
+                        obs = torch.cat([obs, torch.stack(
+                            _goal_features(blob, navb, ts), -1)], -1)
+            with span("outputs"):
+                out = unpack_outputs(blob)
+        return blob, out, obs
 
     def rollout(blob, actions, n_iters: int):
         rsum = osum = None

@@ -33,6 +33,7 @@ import torch
 from dtown_torch import constants as C
 from dtown_torch import types as T
 from dtown_torch.geometry import div, fma32, sincos
+from dtown_torch.utils import profiling
 
 # ---- blob field indices (f32 [F, B]) ---------------------------------
 F_POS_X, F_POS_Y, F_POS_Z, F_ANGLE, F_SPEED = 0, 1, 2, 3, 4
@@ -1038,8 +1039,5 @@ def state_step(blob, actions, dev):
     if err != 0:
         raise RuntimeError(f"state_step kernel launch failed: CUDA error "
                            f"{err}")
-    state_step.launches += 1
+    profiling.count("launches.state_step")
     return out
-
-
-state_step.launches = 0

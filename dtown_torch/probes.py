@@ -20,6 +20,8 @@ import time
 
 import torch
 
+from dtown_torch.utils import profiling
+
 SHAPE = (4096, 32, 128)   # the reference probe's grid x (S, L) block
 OPS = 256
 N_ITERS = 50
@@ -67,11 +69,8 @@ def fma_chain(x, dtype, ops=OPS):
                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fma_chain kernel launch failed: CUDA error {err}")
-    fma_chain.launches += 1
+    profiling.count("launches.fma_chain")
     return out
-
-
-fma_chain.launches = 0
 
 
 def run(dtype, x, n_iters=N_ITERS, ops=OPS):

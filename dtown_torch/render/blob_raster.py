@@ -65,6 +65,7 @@ from dtown_torch.render.tile_shading import (
     INTERSECTION_KINDS, _noise_h16f, _select_word, _shade_pixels,
     _tile_masks,
 )
+from dtown_torch.utils import profiling
 
 LANE_N = 128  # pixel lane width of the [S, 128] frame layout
 
@@ -1212,8 +1213,5 @@ def render_frames_from_blob(blob, pk):
     if err != 0:
         raise RuntimeError(f"blob render kernel launch failed: CUDA error "
                            f"{err}")
-    render_frames_from_blob.launches += 1
+    profiling.count("launches.blob_render")
     return out
-
-
-render_frames_from_blob.launches = 0

@@ -52,6 +52,7 @@ from dtown_torch.render import lod as lodlib
 from dtown_torch.render import meshes as meshlib
 from dtown_torch.render.distortion import undistorted_ndc
 from dtown_torch.render.tile_shading import INTERSECTION_KINDS, _shade_pixels
+from dtown_torch.utils import profiling
 
 LANE_N = 128  # pixel lane width of the [S, 128] frame layout
 
@@ -694,11 +695,8 @@ def row_render_static(cam, words, flags, pk):
     if err != 0:
         raise RuntimeError(f"row_render_static kernel launch failed: CUDA "
                            f"error {err}")
-    row_render_static.launches += 1
+    profiling.count("launches.row_render_static")
     return out
-
-
-row_render_static.launches = 0
 
 
 def row_render(cam, words, obj, prim, pk):
@@ -723,11 +721,8 @@ def row_render(cam, words, obj, prim, pk):
     if err != 0:
         raise RuntimeError(f"row_render kernel launch failed: CUDA error "
                            f"{err}")
-    row_render.launches += 1
+    profiling.count("launches.row_render")
     return out
-
-
-row_render.launches = 0
 
 
 # ---------------------------------------------------------------------------

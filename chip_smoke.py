@@ -121,11 +121,14 @@ Phases (any failure exits non-zero and prints no result):
      65,536): one
      warm-up and three timed iterations (CUDA events: rollout, update,
      training env-steps/s), the state kernel and the blob render 128
-     launches each an iteration, a profiler window of one rollout (their
-     device ms, idle share) and of one update, peak memory, the policy's
-     FLOPs counted from its layer shapes and train_mfu against the dense
-     bf16 peak, then both kernels against their plain versions on the
-     last blob; (c) one Nav iteration on nav_stack (stack3's maps, 4096
+     launches each an iteration and Conv_0's kernel (conv8s4) 161 (129
+     policy calls, 32 minibatches), a profiler window of one rollout
+     (their device ms, idle share) and of one update, peak memory, the
+     policy's FLOPs counted from its layer shapes and train_mfu against
+     the dense bf16 peak, then both kernels against their plain versions
+     on the last blob, and conv8s4 against its plain version (max |diff|
+     0) and timed on the rollout's own frames at a policy call's 4096 and
+     a minibatch's 65,536; (c) one Nav iteration on nav_stack (stack3's maps, 4096
      envs, goal in the observation, rollout 16: goal_frac); (d) a
      learning check, state observations on small_loop, 1024 envs, rollout
      32, 30 iterations, with tests/test_learning.py's bars; (e) one
@@ -473,7 +476,7 @@ def posed_states(states, maps, seed):
 
 # the kernel wrappers' launch counters (dtown_torch.utils.profiling)
 KERNELS = ("state_step", "blob_render", "row_render_static", "row_render",
-           "fma_chain")
+           "fma_chain", "conv8s4")
 
 
 @contextlib.contextmanager
@@ -1469,6 +1472,12 @@ def train_bench(dev, smi):
     if launches["state_step"] != 3 * T or launches["blob_render"] != 3 * T:
         raise AssertionError(f"train (b): K1/K2 launches {launches}, want "
                              f"{3 * T} each")
+    # Conv_0: each policy call (T steps and the last value) and each
+    # minibatch's forward; its weight gradient is cuDNN's
+    n_conv = 3 * (T + 1 + ppo.epochs * ppo.minibatches)
+    if launches["conv8s4"] != n_conv:
+        raise AssertionError(f"train (b): conv8s4 launches "
+                             f"{launches['conv8s4']}, want {n_conv}")
     noise = torch.randn((T, B, 2), generator=gen, device=dev)
     box = {}
 
@@ -1497,7 +1506,97 @@ def train_bench(dev, smi):
     fs = train.fused_step
     rows = held_rows("train", blob, actions, fs.tables, fs.pack, launches,
                      dev_ms)
+    frames = traj["obs"].flatten(0, 1)
+    mb = T * B // ppo.minibatches
+    rows += conv8s4_rows(box["ts"].net, {
+        "policy": train.obs_from(traj["obs"][-1]),
+        "train": train.obs_from(frames[perms[0, :mb]])}, launches, smi)
     torch.cuda.empty_cache()
+    return rows
+
+
+def conv8s4_rows(net, frames, launches, smi):
+    """Conv_0's kernel (ops/conv8s4.py) on each named batch of uint8
+    frames [N, H, W, C]: the wrapper as the trunk calls it (the converted
+    frames kept where the weight needs a gradient, as in the update)
+    against the plain version on the trunk's conversion (max |diff| 0),
+    and cuDNN on the converted frames (max |diff| 0; its ms is the row's
+    library_ms), its device ms a launch from a trace (CUDA events, said
+    so, and the trace's keys printed, if the trace misses it), the plain
+    version's ms, and the bound: its float32 FMAs (one instruction each)
+    and its bytes (frames in, bf16 output and, kept, the converted frames
+    out)."""
+    import torch
+    import torch.nn.functional as F
+    from dtown_torch.learn import networks
+    from dtown_torch.ops import conv8s4
+
+    conv = getattr(net, net.trunk_name).Conv_0
+    w = conv.weight.detach().to(torch.bfloat16).requires_grad_()
+    rows = []
+    for tag, x in frames.items():
+        keep = tag == "train"
+        pads = networks._same_pads(x.permute(0, 3, 1, 2), conv.k,
+                                   conv.stride)
+        with torch.set_grad_enabled(keep):
+            y = conv8s4.conv8s4(x, w, pads)
+        with torch.no_grad():
+            xb = networks._images_to_bf16(x)
+            plain_ms, y_r = cuda_ms(
+                lambda: conv8s4.conv8s4_reference(xb, w, pads), 1)
+            # the layer's own call on the card's parent path
+            left, right, top, bottom = pads
+            lib_ms, y_c = cuda_ms(
+                (lambda: F.conv2d(xb, w, None, conv.stride, (top, left)))
+                if left == right and top == bottom else
+                (lambda: F.conv2d(F.pad(xb, pads), w, None, conv.stride)), 3)
+        err = float((y.detach().float() - y_r.float()).abs().max())
+        err_c = float((y.detach().float() - y_c.float()).abs().max())
+        del y, y_r, y_c, xb
+
+        def call():
+            with torch.set_grad_enabled(keep):
+                conv8s4.conv8s4(x, w, pads)
+
+        def window():
+            # tens of ms, so that the tracer records well before the last
+            # launches: a few-ms window came back empty in a long process
+            for _ in range(max(8, (1 << 18) // x.shape[0])):
+                call()
+
+        torch.cuda.synchronize()
+        kname = "conv8s4_kernel"
+        dev_ms, _, _, keys = profile_window(window, [kname], keys=True)
+        how = "trace"
+        if kname not in dev_ms:
+            # the trace held no device time for it: say what it held, then
+            # CUDA events around 20 back-to-back calls
+            print(f"conv8s4[{tag}]: the trace's device keys: {keys}")
+            dev_ms[kname] = cuda_ms(call, 20)[0]
+            how = "CUDA events"
+        N, H, W, C = x.shape
+        Ho, Wo = -(-H // conv.stride), -(-W // conv.stride)
+        F_out = w.shape[0]
+        fmas = N * Ho * Wo * F_out * conv.k * conv.k * C
+        nbytes = N * (H * W * C + Ho * Wo * F_out * 2
+                      + (H * W * C * 2 if keep else 0))
+        b_ms, b_by = bound(nbytes, fmas)
+        print(f"conv8s4[{tag}]: {N} frames {H}x{W}x{C}, kept frames {keep}:"
+              f" {dev_ms[kname]:.5f} ms/launch ({how}; plain "
+              f"{plain_ms:.3f} ms), "
+              f"bound {b_ms:.6f} ms by {b_by} ({fmas:.4g} FMA, {nbytes:.4g}"
+              f" bytes); vs plain max |diff| {err:.3g}; cuDNN on the "
+              f"converted frames {lib_ms:.3f} ms, max |diff| {err_c:.3g} on "
+              f"{smi}")
+        if err > 0 or err_c > 0:
+            raise AssertionError(f"conv8s4[{tag}]: kernel differs from its "
+                                 f"plain version or cuDNN's")
+        rows.append(dict(name=f"conv8s4[{tag}]", route="cuda",
+                         source="dtown_torch/csrc/conv8s4.cu",
+                         replaces="dtown/learn/networks.py:33",
+                         launches=launches["conv8s4"], max_abs_err=err,
+                         ms=dev_ms[kname], plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms))
     return rows
 
 

@@ -28,7 +28,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dtown_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("state_kernel", "blob_render", "row_render", "fma_probe")
+SOURCES = ("state_kernel", "blob_render", "row_render", "fma_probe",
+           "conv8s4")
 
 _loaded: dict = {}
 

@@ -17,9 +17,10 @@ torch.Generator.
 
 Observations are uint8 images [B, H, W, C] (NHWC as in the reference, any
 strides: the fused learner hands in an NHWC view of the rollout's NCHW
-planes; the trunk's bf16 conversion lays them out channels-last, cuDNN's
-layout for bf16 convolutions), float32 state vectors [B, D], or the pair
-(image, vec) for goal-conditioned camera policies. Networks are built for one observation shape: ``obs_shape`` is
+planes; the trunk's first convolution converts them to bf16 laid out
+channels-last, cuDNN's layout for bf16 convolutions), float32 state
+vectors [B, D], or the pair (image, vec) for goal-conditioned camera
+policies. Networks are built for one observation shape: ``obs_shape`` is
 the per-env shape, (H, W, C) or (D,), or the pair of the two.
 """
 from __future__ import annotations
@@ -29,6 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dtown_torch.ops import conv8s4 as _conv8s4
 
 BF16 = torch.bfloat16
 # stddev of a standard normal truncated to (-2, 2): lecun_normal's divisor
@@ -78,12 +81,17 @@ class Conv(nn.Module):
     """flax ``nn.Conv`` (SAME padding, bf16) on NCHW-shaped tensors (kept
     channels-last in memory by the trunks); the weight is stored OIHW.
     Symmetric SAME padding goes to the convolution itself, so only an
-    uneven one costs a padded copy."""
+    uneven one costs a padded copy. A trunk's first layer takes the uint8
+    frames [B, H, W, C] and converts them (``_images_to_bf16``). On the card
+    a layer of NatureCNN's first shape (8x8 stride 4 on 1 or 3 channels, 32
+    features), which cuDNN runs on its generic engine, runs ops/conv8s4.py's
+    kernel, which converts the frames itself, to the same bits."""
 
     def __init__(self, c_in, features, k, stride=1, device=None,
                  generator=None):
         super().__init__()
         self.k, self.stride = k, stride
+        self.direct = _conv8s4.fits(c_in, features, k, stride)
         self.weight = nn.Parameter(torch.empty(features, c_in, k, k,
                                                device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -91,13 +99,19 @@ class Conv(nn.Module):
             _lecun_normal_(self.weight, k * k * c_in, generator)
 
     def forward(self, x):
-        left, right, top, bottom = _same_pads(x, self.k, self.stride)
         w = self.weight.to(BF16)
-        if left == right and top == bottom:
-            y = F.conv2d(x, w, None, self.stride, (top, left))
+        if x.dtype == torch.uint8 and self.direct and x.is_cuda:
+            y = _conv8s4.conv8s4(x, w, _same_pads(x.permute(0, 3, 1, 2),
+                                                  self.k, self.stride))
         else:
-            y = F.conv2d(F.pad(x, (left, right, top, bottom)), w, None,
-                         self.stride)
+            if x.dtype == torch.uint8:
+                x = _images_to_bf16(x)
+            left, right, top, bottom = pads = _same_pads(x, self.k,
+                                                         self.stride)
+            if left == right and top == bottom:
+                y = F.conv2d(x, w, None, self.stride, (top, left))
+            else:
+                y = F.conv2d(F.pad(x, pads), w, None, self.stride)
         return y + self.bias.to(BF16)[:, None, None]
 
 
@@ -148,7 +162,7 @@ class ConvTrunk(nn.Module):
     def forward(self, x):
         if not self.image:
             return _state_mlp(self, x)
-        h = _images_to_bf16(x)
+        h = x                       # Conv_0 converts the uint8 frames
         for i in range(self.n_conv):
             h = F.relu(getattr(self, f"Conv_{i}")(h))
         # flax flattens NHWC: features in (H, W, C) order (a view of the
@@ -185,8 +199,8 @@ class ImpalaTrunk(nn.Module):
     def forward(self, x):
         if not self.image:
             return _state_mlp(self, x)
-        h = _images_to_bf16(x)
         conv = lambda i, v: getattr(self, f"Conv_{i}")(v)
+        h = x                       # Conv_0 converts the uint8 frames
         for s in range(self.n_stage):
             h = conv(5 * s, h)
             h = F.max_pool2d(F.pad(h, _same_pads(h, 3, 2), value=-math.inf),

@@ -1,10 +1,12 @@
 """dtown_torch.learn.networks against dtown.learn.networks (flax), with the
 flax parameters carried across by convert.params_from_flax: the forward
 pass of every trunk and observation kind, the initializers' statistics,
-and one recurrent step."""
+and one recurrent step; the plain version of the first convolution's
+card kernel against F.conv2d."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,8 @@ from dtown.learn import networks as jnet
 
 from dtown_torch.convert import params_from_flax
 from dtown_torch.learn import networks as tnet
+from dtown_torch.ops import conv8s4
+from dtown_torch.utils import profiling
 
 # Outputs agree within two bf16 ulps (2^-7) of the output's scale: both
 # trunks round every layer to bf16 and accumulate in f32 in another order,
@@ -175,3 +179,98 @@ def test_params_from_flax_refuses_missing_and_extra_leaves():
 def test_unknown_trunk_raises():
     with pytest.raises(ValueError, match="unknown trunk"):
         tnet.ActorCritic((11,), trunk="resnet")
+
+
+def _frames(hw, c, layout, seed=0):
+    """uint8 frames [4, H, W, c]: contiguous NHWC (the step path's) or an
+    NHWC view of NCHW planes (the fused learner's)."""
+    g = torch.Generator().manual_seed(seed)
+    H, W = hw
+    if layout == "nhwc":
+        return torch.randint(0, 256, (4, H, W, c), generator=g,
+                             dtype=torch.uint8)
+    return torch.randint(0, 256, (4, c, H, W), generator=g,
+                         dtype=torch.uint8).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(64, 64), (96, 96), (32, 32), (84, 84),
+                                (31, 31), (48, 64)])
+@pytest.mark.parametrize("c", [3, 1])
+def test_conv8s4_reference_matches_conv2d(dtype, hw, c):
+    """ops/conv8s4.py's plain version (the card kernel's order: each
+    output summed from 0 over window row, window column, channel) computes
+    F.conv2d of NatureCNN's first layer (8x8 stride 4 on 3 or 1 channels,
+    XLA's SAME padding) on the images / 255. In float64: the output and
+    the weight and bias gradients to 1e-12 of their scale (only the order
+    of the sum differs). In bf16 (f32 sums, rounded once): the output
+    within one bf16 ulp of its scale."""
+    x = _frames(hw, c, "planes" if c == 3 else "nhwc").permute(0, 3, 1, 2)
+    x = x.to(dtype) / torch.full((), 255.0, dtype=dtype)
+    conv = tnet.Conv(c, 32, 8, 4, generator=torch.Generator().manual_seed(1))
+    assert conv.direct
+    pads = tnet._same_pads(x, 8, 4)
+    leaves = [conv.weight.detach().to(dtype), torch.randn(
+        32, generator=torch.Generator().manual_seed(2)).to(dtype)]
+    got_leaves = [v.clone().requires_grad_() for v in leaves]
+    want_leaves = [v.clone().requires_grad_() for v in leaves]
+    got = conv8s4.conv8s4_reference(x, got_leaves[0], pads) \
+        + got_leaves[1][:, None, None]
+    want = F.conv2d(F.pad(x, pads), want_leaves[0], None, 4) \
+        + want_leaves[1][:, None, None]
+    assert got.shape == want.shape == (4, 32, -(-hw[0] // 4),
+                                       -(-hw[1] // 4))
+    assert got.dtype == dtype
+    if dtype == torch.float64:
+        dy = torch.randn(want.shape, generator=torch.Generator()
+                         .manual_seed(3), dtype=dtype)
+        got.backward(dy)
+        want.backward(dy)
+        pairs = [(got, want)] + [(a.grad, b.grad) for a, b in
+                                 zip(got_leaves, want_leaves)]
+        for a, b in pairs:
+            a, b = a.detach().numpy(), b.detach().numpy()
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-12 * np.abs(b).max())
+        return
+    want = want.detach().float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=0,
+                               atol=ulp)
+
+
+@pytest.mark.parametrize("trunk,kind,direct", [
+    ("nature", "rgb", [True, False, False]),
+    ("nature", "gray", [True, False, False]),
+    ("impala", "rgb", [False] * 15), ("nature", "state", [])])
+def test_conv8s4_engages_by_shape(trunk, kind, direct):
+    """The kernel's shape (8x8 stride 4, 1 or 3 channels, 32 features) is
+    NatureCNN's Conv_0 alone: not Conv_1 / Conv_2, no IMPALA conv (3x3
+    stride 1), nothing of a state trunk. The parameters keep flax's names
+    and shapes, so params_from_flax loads a flax tree as before; on the
+    CPU the layer stays F.conv2d and launches nothing, and the kernel's
+    wrapper refuses CPU tensors."""
+    obs = _obs(kind, 64)
+    params = jnet.ActorCritic(trunk=trunk).init(jax.random.PRNGKey(0),
+                                                jnp.asarray(obs))
+    port = params_from_flax(_np(params), tnet.ActorCritic(obs.shape[1:],
+                                                          trunk=trunk))
+    t = getattr(port, port.trunk_name)
+    convs = [m for m in t.modules() if isinstance(m, tnet.Conv)]
+    assert [m.direct for m in convs] == direct
+    if trunk == "nature" and kind != "state":
+        assert {k: tuple(v.shape) for k, v in t.state_dict().items()} == {
+            "Conv_0.weight": (32, obs.shape[-1], 8, 8), "Conv_0.bias": (32,),
+            "Conv_1.weight": (64, 32, 4, 4), "Conv_1.bias": (64,),
+            "Conv_2.weight": (64, 64, 3, 3), "Conv_2.bias": (64,),
+            "Dense_0.weight": (512, 8 * 8 * 64), "Dense_0.bias": (512,)}
+    profiling.reset_counters()
+    with torch.no_grad():
+        port(torch.from_numpy(obs))
+    assert "launches.conv8s4" not in profiling.counters()
+    if direct and direct[0]:
+        frames = torch.from_numpy(obs)
+        w = t.Conv_0.weight.detach().to(tnet.BF16)
+        pads = tnet._same_pads(frames.permute(0, 3, 1, 2), 8, 4)
+        with pytest.raises(ValueError, match="runs on the card"):
+            conv8s4.conv8s4(frames, w, pads)

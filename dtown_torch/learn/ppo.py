@@ -32,7 +32,7 @@ import torch.distributed as dist
 
 from dtown_torch.device import resolve_device
 from dtown_torch.learn.networks import ActorCritic
-from dtown_torch.utils.profiling import span
+from dtown_torch.utils.profiling import count, span
 
 
 class PPOConfig(NamedTuple):
@@ -97,15 +97,22 @@ def pmean_grads_(params, group):
     """jax.lax.pmean of the parameters' gradients over the ranks of
     ``group`` (a torch.distributed process group), in place: one
     all_reduce (a sum) of the flattened gradients, then a division by the
-    world size. Every rank ends with the same bits."""
+    world size. Every rank ends with the same bits. The span
+    ``ppo.allreduce`` times the exchange and the division on the device
+    (the wait for the slowest rank included); the counters
+    ``allreduce_calls`` and ``allreduce_bytes`` count the calls and the
+    flattened gradients' bytes."""
     if not dist.is_initialized():
         raise RuntimeError("sharded training needs an initialised "
                            "torch.distributed process group "
                            "(parallel.make_mesh)")
     grads = [p.grad for p in params if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
-    flat = flat / dist.get_world_size(group)
+    count("allreduce_calls")
+    count("allreduce_bytes", flat.numel() * flat.element_size())
+    with span("ppo.allreduce", flat.device):
+        dist.all_reduce(flat, group=group)
+        flat = flat / dist.get_world_size(group)
     i = 0
     for g in grads:
         g.copy_(flat[i:i + g.numel()].view_as(g))

@@ -134,7 +134,15 @@ Phases (any failure exits non-zero and prints no result):
      32, 30 iterations, with tests/test_learning.py's bars; (e) one
      step-path iteration (make_ppo(fused=False), renderer="pallas",
      loop_obstacles 4096 envs 64x64, rollout 32) after a warm-up, with its
-     env-steps/s, the static-scene row render launched;
+     env-steps/s, the static-scene row render launched; (f) one rank of the
+     four-card cell on one card: stack3 at 2048 envs, the IMPALA-CNN trunk,
+     PPOConfig(trunk="impala"): one warm-up and one counted iteration
+     (Conv_0's kernel, conv3s1, 161 launches: 129 policy calls, 32
+     minibatches; conv8s4 none), a trace of a policy call and of a
+     minibatch's forward and backward without cuDNN's generic engine, and
+     conv3s1 against its plain version and cuDNN (max |diff| 0) and timed on
+     the rollout's own frames at a policy call's 2048 and a minibatch's
+     32,768;
   10. the throughput probe (K5, python -m dtown_torch.probes) in float32
      and bfloat16 at the reference probe's [4096, 32, 128], 256 steps:
      the probe's loop (its launches counted), the kernel vs its plain
@@ -476,7 +484,7 @@ def posed_states(states, maps, seed):
 
 # the kernel wrappers' launch counters (dtown_torch.utils.profiling)
 KERNELS = ("state_step", "blob_render", "row_render_static", "row_render",
-           "fma_chain", "conv8s4")
+           "fma_chain", "conv8s4", "conv3s1")
 
 
 @contextlib.contextmanager
@@ -1600,6 +1608,133 @@ def conv8s4_rows(net, frames, launches, smi):
     return rows
 
 
+def train_impala(dev, smi):
+    """(f) One rank of multimap3_rgb64.ppo_dp4 on one card: stack3 at 2048
+    envs, 64x64 RGB, the IMPALA-CNN trunk, PPOConfig(trunk="impala")
+    (rollout 128, 4 epochs x 8 minibatches of 32,768). One warm-up
+    iteration and one counted; a trace of a policy call and of a
+    minibatch's forward and backward; then Conv_0's kernel rows. Returns
+    them."""
+    import torch
+    import dtown_torch
+    from dtown_torch.learn import ppo as P
+
+    B = 2048
+    cfg = dtown_torch.EnvConfig(camera_width=64, camera_height=64)
+    ppo = P.PPOConfig(trunk="impala")
+    init, train = P.make_ppo(cfg, dtown_torch.stack_maps(STACK3), B, ppo,
+                             fused=True, device=dev)
+    ts = init(torch.Generator(device=dev).manual_seed(2))
+    gen = ts.generator
+    ts, _, _, _, _, warm = timed_iteration(train, ts, gen, ppo, B, dev)
+    with counting() as launches:
+        ts, traj, _, r_ms, u_ms, it_ms = timed_iteration(train, ts, gen, ppo,
+                                                         B, dev)
+    T = ppo.rollout_len
+    n_conv = T + 1 + ppo.epochs * ppo.minibatches
+    print(f"train (f) fused PPO, IMPALA-CNN, stack3 {B} envs 64x64 on {smi}:"
+          f" warm-up {warm:.1f} ms; iteration {it_ms:.1f} ms (rollout "
+          f"{r_ms:.1f}, update {u_ms:.1f}); launches {launches}")
+    if launches["conv3s1"] != n_conv or launches["conv8s4"] != 0:
+        raise AssertionError(f"train (f): conv3s1 / conv8s4 launches "
+                             f"{launches['conv3s1']} / {launches['conv8s4']},"
+                             f" want {n_conv} / 0")
+    frames = traj["obs"].flatten(0, 1)
+    mb = T * B // ppo.minibatches
+    batch = {"policy": train.obs_from(traj["obs"][-1]),
+             "train": train.obs_from(frames[torch.randperm(
+                 T * B, generator=gen, device=dev)[:mb]])}
+    net = ts.net
+
+    def window():
+        with torch.no_grad():
+            net(batch["policy"])
+        net.zero_grad()
+        net(batch["train"])[0].float().square().mean().backward()
+
+    window()
+    _, _, _, keys = profile_window(window, [], keys=True)
+    generic = [k for k in keys if "convolve_common_engine" in k]
+    if generic or not any("conv3s1_kernel" in k for k in keys):
+        raise AssertionError(f"train (f): the trace's device keys {keys}")
+    net.zero_grad()
+    rows = conv3s1_rows(net, batch, launches, smi)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def conv3s1_rows(net, frames, launches, smi):
+    """The IMPALA trunk's Conv_0 kernel (ops/conv3s1.py) on each named batch
+    of uint8 frames [N, H, W, C], as conv8s4_rows: the wrapper as the trunk
+    calls it (the converted frames kept for "train") against the plain
+    version and cuDNN on the converted frames (max |diff| 0; cuDNN's ms is
+    library_ms), its device ms a launch from a trace, the plain version's
+    ms, and the bound: the larger of its float32 FMAs at 33.5e12 a second
+    and its bytes (frames in, bf16 output and, kept, the converted frames
+    out) at 3.35e12."""
+    import torch
+    import torch.nn.functional as F
+    from dtown_torch.learn import networks
+    from dtown_torch.ops import conv3s1
+
+    conv = getattr(net, net.trunk_name).Conv_0
+    w = conv.weight.detach().to(torch.bfloat16).requires_grad_()
+    rows = []
+    for tag, x in frames.items():
+        keep = tag == "train"
+        with torch.set_grad_enabled(keep):
+            y = conv3s1.conv3s1(x, w)
+        with torch.no_grad():
+            xb = networks._images_to_bf16(x)
+            plain_ms, y_r = cuda_ms(
+                lambda: conv3s1.conv3s1_reference(xb, w), 1)
+            # the layer's own call on the card's parent path
+            lib_ms, y_c = cuda_ms(
+                lambda: F.conv2d(xb, w, None, 1, (1, 1)), 3)
+        err = float((y.detach().float() - y_r.float()).abs().max())
+        err_c = float((y.detach().float() - y_c.float()).abs().max())
+        del y, y_r, y_c, xb
+
+        def call():
+            with torch.set_grad_enabled(keep):
+                conv3s1.conv3s1(x, w)
+
+        def window():
+            for _ in range(max(8, (1 << 18) // x.shape[0])):
+                call()
+
+        torch.cuda.synchronize()
+        kname = "conv3s1_kernel"
+        dev_ms, _, _, keys = profile_window(window, [kname], keys=True)
+        how = "trace"
+        if kname not in dev_ms:
+            print(f"conv3s1[{tag}]: the trace's device keys: {keys}")
+            dev_ms[kname] = cuda_ms(call, 20)[0]
+            how = "CUDA events"
+        N, H, W, C = x.shape
+        F_out = w.shape[0]
+        fmas = N * H * W * F_out * 9 * C
+        nbytes = N * (H * W * C + H * W * F_out * 2
+                      + (H * W * C * 2 if keep else 0))
+        b_ms, b_by = bound(nbytes, fmas)
+        print(f"conv3s1[{tag}]: {N} frames {H}x{W}x{C}, kept frames {keep}:"
+              f" {dev_ms[kname]:.5f} ms/launch ({how}; plain "
+              f"{plain_ms:.3f} ms), bound {b_ms:.6f} ms by {b_by} "
+              f"({fmas:.4g} FMA, {nbytes:.4g} bytes); vs plain max |diff| "
+              f"{err:.3g}; cuDNN on the converted frames {lib_ms:.3f} ms, "
+              f"max |diff| {err_c:.3g} on {smi}")
+        if err > 0 or err_c > 0:
+            raise AssertionError(f"conv3s1[{tag}]: kernel differs from its "
+                                 f"plain version or cuDNN's")
+        rows.append(dict(name=f"conv3s1[{tag}]", route="cuda",
+                         source="dtown_torch/csrc/conv3s1.cu",
+                         replaces="dtown/learn/networks.py:101",
+                         launches=launches["conv3s1"], max_abs_err=err,
+                         ms=dev_ms[kname], plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms))
+    return rows
+
+
 def train_nav(dev, smi):
     """(c) One fused PPO iteration on nav_stack: stack3's maps, 4096 envs,
     64x64, Nav with the goal in the observation (the (image, goal)
@@ -1700,6 +1835,7 @@ def train_phase(dev, smi):
     train_nav(dev, smi)
     train_learns(dev, smi)
     train_step_path(dev, smi)
+    rows += train_impala(dev, smi)
     return rows
 
 

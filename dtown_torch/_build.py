@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 SOURCES = ("state_kernel", "blob_render", "row_render", "fma_probe",
-           "conv8s4")
+           "conv8s4", "conv3s1")
 
 _loaded: dict = {}
 

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dtown_torch.ops import conv3s1 as _conv3s1
 from dtown_torch.ops import conv8s4 as _conv8s4
 
 BF16 = torch.bfloat16
@@ -85,13 +86,16 @@ class Conv(nn.Module):
     frames [B, H, W, C] and converts them (``_images_to_bf16``). On the card
     a layer of NatureCNN's first shape (8x8 stride 4 on 1 or 3 channels, 32
     features), which cuDNN runs on its generic engine, runs ops/conv8s4.py's
-    kernel, which converts the frames itself, to the same bits."""
+    kernel, which converts the frames itself, to the same bits; one of the
+    IMPALA trunk's first shape (3x3 stride 1 on 1 or 3 channels, 16
+    features), on the generic engine too, runs ops/conv3s1.py's, alike."""
 
     def __init__(self, c_in, features, k, stride=1, device=None,
                  generator=None):
         super().__init__()
         self.k, self.stride = k, stride
         self.direct = _conv8s4.fits(c_in, features, k, stride)
+        self.direct3 = _conv3s1.fits(c_in, features, k, stride)
         self.weight = nn.Parameter(torch.empty(features, c_in, k, k,
                                                device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -103,6 +107,8 @@ class Conv(nn.Module):
         if x.dtype == torch.uint8 and self.direct and x.is_cuda:
             y = _conv8s4.conv8s4(x, w, _same_pads(x.permute(0, 3, 1, 2),
                                                   self.k, self.stride))
+        elif x.dtype == torch.uint8 and self.direct3 and x.is_cuda:
+            y = _conv3s1.conv3s1(x, w)
         else:
             if x.dtype == torch.uint8:
                 x = _images_to_bf16(x)

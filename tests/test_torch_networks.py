@@ -2,7 +2,7 @@
 flax parameters carried across by convert.params_from_flax: the forward
 pass of every trunk and observation kind, the initializers' statistics,
 and one recurrent step; the plain version of the first convolution's
-card kernel against F.conv2d."""
+card kernels against F.conv2d."""
 import numpy as np
 import pytest
 import torch
@@ -15,7 +15,7 @@ from dtown.learn import networks as jnet
 
 from dtown_torch.convert import params_from_flax
 from dtown_torch.learn import networks as tnet
-from dtown_torch.ops import conv8s4
+from dtown_torch.ops import conv3s1, conv8s4
 from dtown_torch.utils import profiling
 
 # Outputs agree within two bf16 ulps (2^-7) of the output's scale: both
@@ -274,3 +274,106 @@ def test_conv8s4_engages_by_shape(trunk, kind, direct):
         pads = tnet._same_pads(frames.permute(0, 3, 1, 2), 8, 4)
         with pytest.raises(ValueError, match="runs on the card"):
             conv8s4.conv8s4(frames, w, pads)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (32, 32), (31, 47)])
+@pytest.mark.parametrize("c", [3, 1])
+def test_conv3s1_reference_matches_conv2d(hw, c):
+    """ops/conv3s1.py's plain version (the card kernel's order) computes
+    F.conv2d of the IMPALA trunk's first layer (3x3 stride 1 on 3 or 1
+    channels, SAME padding) on the images / 255: in float64 the output and
+    the weight and bias gradients to 1e-12 of their scale (only the order
+    of the sum differs)."""
+    x = _frames(hw, c, "planes" if c == 3 else "nhwc").permute(0, 3, 1, 2)
+    x = x.double() / torch.full((), 255.0, dtype=torch.float64)
+    conv = tnet.Conv(c, 16, 3, 1, generator=torch.Generator().manual_seed(1))
+    assert conv.direct3 and not conv.direct
+    assert tnet._same_pads(x, 3, 1) == [conv3s1.PAD] * 4
+    leaves = [conv.weight.detach().double(), torch.randn(
+        16, generator=torch.Generator().manual_seed(2)).double()]
+    got_leaves = [v.clone().requires_grad_() for v in leaves]
+    want_leaves = [v.clone().requires_grad_() for v in leaves]
+    got = conv3s1.conv3s1_reference(x, got_leaves[0]) \
+        + got_leaves[1][:, None, None]
+    want = F.conv2d(x, want_leaves[0], None, 1, 1) \
+        + want_leaves[1][:, None, None]
+    assert got.shape == want.shape == (4, 16) + hw
+    assert got.dtype == torch.float64
+    dy = torch.randn(want.shape, generator=torch.Generator().manual_seed(3),
+                     dtype=torch.float64)
+    got.backward(dy)
+    want.backward(dy)
+    pairs = [(got, want)] + [(a.grad, b.grad) for a, b in
+                             zip(got_leaves, want_leaves)]
+    for a, b in pairs:
+        a, b = a.detach().numpy(), b.detach().numpy()
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("c", [3, 1])
+def test_conv3s1_reference_sums_in_kernel_order(c):
+    """The plain version in bf16 is, bit for bit, the kernel's sum: per
+    output a float32 chain from 0 over window row, window column, channel,
+    rounded once to bf16 (a scalar loop here). Where every partial sum is
+    exact in float32 (small multiples of powers of two), it equals
+    F.conv2d exactly, in float32 and rounded to bf16."""
+    g = torch.Generator().manual_seed(4)
+    u = torch.randint(0, 256, (2, c, 5, 6), generator=g, dtype=torch.uint8)
+    x = u.to(tnet.BF16) / torch.full((), 255.0, dtype=tnet.BF16)
+    w = torch.randn((16, c, 3, 3), generator=g).to(tnet.BF16)
+    got = conv3s1.conv3s1_reference(x, w)
+    assert got.dtype == tnet.BF16
+    xp = np.pad(x.float().numpy(), ((0, 0), (0, 0), (1, 1), (1, 1)))
+    wn = w.float().numpy()
+    want = np.zeros((2, 16, 5, 6), np.float32)
+    for b, o, i, j in np.ndindex(*want.shape):
+        acc = np.float32(0)
+        for r in range(3):
+            for s in range(3):
+                for ch in range(c):
+                    acc = np.float32(acc + xp[b, ch, i + r, j + s]
+                                     * wn[o, ch, r, s])
+        want[b, o, i, j] = acc
+    assert torch.equal(got, torch.from_numpy(want).to(tnet.BF16))
+
+    xe = torch.randint(0, 9, (2, c, 7, 5), generator=g).float() / 8
+    we = torch.randint(-8, 9, (16, c, 3, 3), generator=g).float() / 4
+    exact = F.conv2d(xe, we, None, 1, 1)
+    assert torch.equal(conv3s1.conv3s1_reference(xe, we), exact)
+    assert torch.equal(conv3s1.conv3s1_reference(xe.to(tnet.BF16),
+                                                 we.to(tnet.BF16)),
+                       exact.to(tnet.BF16))
+
+
+@pytest.mark.parametrize("trunk,kind,direct3", [
+    ("impala", "rgb", [True] + [False] * 14),
+    ("impala", "gray", [True] + [False] * 14),
+    ("nature", "rgb", [False] * 3), ("nature", "gray", [False] * 3),
+    ("impala", "state", [])])
+def test_conv3s1_engages_by_shape(trunk, kind, direct3):
+    """The kernel's shape (3x3 stride 1, 1 or 3 channels, 16 features) is
+    the IMPALA trunk's Conv_0 alone: none of its other 14 convolutions (16
+    or 32 channels in), no NatureCNN layer (its Conv_2 is 3x3 stride 1 on
+    64 channels), nothing of a state trunk. On the CPU the layer stays
+    F.conv2d and launches nothing; the kernel's wrapper refuses CPU
+    tensors and other dtypes."""
+    obs = torch.from_numpy(_obs(kind, 32))
+    net = tnet.ActorCritic(tuple(obs.shape[1:]), trunk=trunk,
+                           generator=torch.Generator().manual_seed(0))
+    t = getattr(net, net.trunk_name)
+    convs = [m for m in t.modules() if isinstance(m, tnet.Conv)]
+    assert [m.direct3 for m in convs] == direct3
+    assert not any(m.direct and m.direct3 for m in convs)
+    profiling.reset_counters()
+    with torch.no_grad():
+        net(obs)
+    assert "launches.conv3s1" not in profiling.counters()
+    if direct3 and direct3[0]:
+        w = t.Conv_0.weight.detach().to(tnet.BF16)
+        with pytest.raises(ValueError, match="runs on the card"):
+            conv3s1.conv3s1(obs, w)
+        with pytest.raises(ValueError, match="takes uint8 frames"):
+            conv3s1.conv3s1(obs.float(), w)
+        with pytest.raises(ValueError, match="takes uint8 frames"):
+            conv3s1.conv3s1(obs, w.float())
+        assert "launches.conv3s1" not in profiling.counters()

@@ -1483,9 +1483,7 @@ def train_bench(dev, smi):
     # Conv_0: each policy call (T steps and the last value) and each
     # minibatch's forward; its weight gradient is cuDNN's
     n_conv = 3 * (T + 1 + ppo.epochs * ppo.minibatches)
-    if launches["conv8s4"] != n_conv:
-        raise AssertionError(f"train (b): conv8s4 launches "
-                             f"{launches['conv8s4']}, want {n_conv}")
+    check_conv_launches("train (b)", ts.net, launches, n_conv)
     noise = torch.randn((T, B, 2), generator=gen, device=dev)
     box = {}
 
@@ -1516,55 +1514,73 @@ def train_bench(dev, smi):
                      dev_ms)
     frames = traj["obs"].flatten(0, 1)
     mb = T * B // ppo.minibatches
-    rows += conv8s4_rows(box["ts"].net, {
+    rows += frames_conv_rows(box["ts"].net, {
         "policy": train.obs_from(traj["obs"][-1]),
         "train": train.obs_from(frames[perms[0, :mb]])}, launches, smi)
     torch.cuda.empty_cache()
     return rows
 
 
-def conv8s4_rows(net, frames, launches, smi):
-    """Conv_0's kernel (ops/conv8s4.py) on each named batch of uint8
-    frames [N, H, W, C]: the wrapper as the trunk calls it (the converted
-    frames kept where the weight needs a gradient, as in the update)
-    against the plain version on the trunk's conversion (max |diff| 0),
-    and cuDNN on the converted frames (max |diff| 0; its ms is the row's
-    library_ms), its device ms a launch from a trace (CUDA events, said
-    so, and the trace's keys printed, if the trace misses it), the plain
-    version's ms, and the bound: its float32 FMAs (one instruction each)
-    and its bytes (frames in, bf16 output and, kept, the converted frames
-    out)."""
+# what each of ops/frames_conv.py's kernels replaces in the JAX package
+CONV_REPLACES = {"conv8s4": "dtown/learn/networks.py:33",
+                 "conv3s1": "dtown/learn/networks.py:101"}
+
+
+def check_conv_launches(tag, net, launches, n):
+    """Raise unless the trunk's Conv_0 kernel launched ``n`` times and the
+    table's other kernels not at all."""
+    from dtown_torch.ops import frames_conv
+
+    name = getattr(net, net.trunk_name).Conv_0.kernel
+    want = {k: n if k == name else 0 for k in frames_conv.KERNELS.values()}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: Conv_0 kernel launches {got}, want "
+                             f"{want}")
+
+
+def frames_conv_rows(net, frames, launches, smi):
+    """The trunk's Conv_0 kernel (ops/frames_conv.py) on each named batch of
+    uint8 frames [N, H, W, C]: the wrapper as the trunk calls it (the
+    converted frames kept where the weight needs a gradient, as in the
+    update: for "train") against the plain version on the trunk's
+    conversion (max |diff| 0), and cuDNN on the converted frames (max
+    |diff| 0; its ms is the row's library_ms), its device ms a launch from
+    a trace (CUDA events, said so, and the trace's keys printed, if the
+    trace misses it), the plain version's ms, and the bound: its float32
+    FMAs (one instruction each) and its bytes (frames in, bf16 output and,
+    kept, the converted frames out)."""
     import torch
     import torch.nn.functional as F
     from dtown_torch.learn import networks
-    from dtown_torch.ops import conv8s4
+    from dtown_torch.ops import frames_conv
 
     conv = getattr(net, net.trunk_name).Conv_0
+    name, k, s = conv.kernel, conv.k, conv.stride
     w = conv.weight.detach().to(torch.bfloat16).requires_grad_()
     rows = []
     for tag, x in frames.items():
         keep = tag == "train"
-        pads = networks._same_pads(x.permute(0, 3, 1, 2), conv.k,
-                                   conv.stride)
+        pads = networks._same_pads(x.permute(0, 3, 1, 2), k, s)
         with torch.set_grad_enabled(keep):
-            y = conv8s4.conv8s4(x, w, pads)
+            y = frames_conv.frames_conv(x, w, s, pads)
         with torch.no_grad():
             xb = networks._images_to_bf16(x)
             plain_ms, y_r = cuda_ms(
-                lambda: conv8s4.conv8s4_reference(xb, w, pads), 1)
+                lambda: frames_conv.frames_conv_reference(xb, w, s, pads), 1)
             # the layer's own call on the card's parent path
             left, right, top, bottom = pads
             lib_ms, y_c = cuda_ms(
-                (lambda: F.conv2d(xb, w, None, conv.stride, (top, left)))
+                (lambda: F.conv2d(xb, w, None, s, (top, left)))
                 if left == right and top == bottom else
-                (lambda: F.conv2d(F.pad(xb, pads), w, None, conv.stride)), 3)
+                (lambda: F.conv2d(F.pad(xb, pads), w, None, s)), 3)
         err = float((y.detach().float() - y_r.float()).abs().max())
         err_c = float((y.detach().float() - y_c.float()).abs().max())
         del y, y_r, y_c, xb
 
         def call():
             with torch.set_grad_enabled(keep):
-                conv8s4.conv8s4(x, w, pads)
+                frames_conv.frames_conv(x, w, s, pads)
 
         def window():
             # tens of ms, so that the tracer records well before the last
@@ -1573,23 +1589,23 @@ def conv8s4_rows(net, frames, launches, smi):
                 call()
 
         torch.cuda.synchronize()
-        kname = "conv8s4_kernel"
+        kname = f"{name}_kernel"
         dev_ms, _, _, keys = profile_window(window, [kname], keys=True)
         how = "trace"
         if kname not in dev_ms:
             # the trace held no device time for it: say what it held, then
             # CUDA events around 20 back-to-back calls
-            print(f"conv8s4[{tag}]: the trace's device keys: {keys}")
+            print(f"{name}[{tag}]: the trace's device keys: {keys}")
             dev_ms[kname] = cuda_ms(call, 20)[0]
             how = "CUDA events"
         N, H, W, C = x.shape
-        Ho, Wo = -(-H // conv.stride), -(-W // conv.stride)
+        Ho, Wo = -(-H // s), -(-W // s)
         F_out = w.shape[0]
-        fmas = N * Ho * Wo * F_out * conv.k * conv.k * C
+        fmas = N * Ho * Wo * F_out * k * k * C
         nbytes = N * (H * W * C + Ho * Wo * F_out * 2
                       + (H * W * C * 2 if keep else 0))
         b_ms, b_by = bound(nbytes, fmas)
-        print(f"conv8s4[{tag}]: {N} frames {H}x{W}x{C}, kept frames {keep}:"
+        print(f"{name}[{tag}]: {N} frames {H}x{W}x{C}, kept frames {keep}:"
               f" {dev_ms[kname]:.5f} ms/launch ({how}; plain "
               f"{plain_ms:.3f} ms), "
               f"bound {b_ms:.6f} ms by {b_by} ({fmas:.4g} FMA, {nbytes:.4g}"
@@ -1597,12 +1613,12 @@ def conv8s4_rows(net, frames, launches, smi):
               f"converted frames {lib_ms:.3f} ms, max |diff| {err_c:.3g} on "
               f"{smi}")
         if err > 0 or err_c > 0:
-            raise AssertionError(f"conv8s4[{tag}]: kernel differs from its "
+            raise AssertionError(f"{name}[{tag}]: kernel differs from its "
                                  f"plain version or cuDNN's")
-        rows.append(dict(name=f"conv8s4[{tag}]", route="cuda",
-                         source="dtown_torch/csrc/conv8s4.cu",
-                         replaces="dtown/learn/networks.py:33",
-                         launches=launches["conv8s4"], max_abs_err=err,
+        rows.append(dict(name=f"{name}[{tag}]", route="cuda",
+                         source=f"dtown_torch/csrc/{name}.cu",
+                         replaces=CONV_REPLACES[name],
+                         launches=launches[name], max_abs_err=err,
                          ms=dev_ms[kname], plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms))
     return rows
@@ -1635,10 +1651,7 @@ def train_impala(dev, smi):
     print(f"train (f) fused PPO, IMPALA-CNN, stack3 {B} envs 64x64 on {smi}:"
           f" warm-up {warm:.1f} ms; iteration {it_ms:.1f} ms (rollout "
           f"{r_ms:.1f}, update {u_ms:.1f}); launches {launches}")
-    if launches["conv3s1"] != n_conv or launches["conv8s4"] != 0:
-        raise AssertionError(f"train (f): conv3s1 / conv8s4 launches "
-                             f"{launches['conv3s1']} / {launches['conv8s4']},"
-                             f" want {n_conv} / 0")
+    check_conv_launches("train (f)", ts.net, launches, n_conv)
     frames = traj["obs"].flatten(0, 1)
     mb = T * B // ppo.minibatches
     batch = {"policy": train.obs_from(traj["obs"][-1]),
@@ -1658,80 +1671,8 @@ def train_impala(dev, smi):
     if generic or not any("conv3s1_kernel" in k for k in keys):
         raise AssertionError(f"train (f): the trace's device keys {keys}")
     net.zero_grad()
-    rows = conv3s1_rows(net, batch, launches, smi)
+    rows = frames_conv_rows(net, batch, launches, smi)
     torch.cuda.empty_cache()
-    return rows
-
-
-def conv3s1_rows(net, frames, launches, smi):
-    """The IMPALA trunk's Conv_0 kernel (ops/conv3s1.py) on each named batch
-    of uint8 frames [N, H, W, C], as conv8s4_rows: the wrapper as the trunk
-    calls it (the converted frames kept for "train") against the plain
-    version and cuDNN on the converted frames (max |diff| 0; cuDNN's ms is
-    library_ms), its device ms a launch from a trace, the plain version's
-    ms, and the bound: the larger of its float32 FMAs at 33.5e12 a second
-    and its bytes (frames in, bf16 output and, kept, the converted frames
-    out) at 3.35e12."""
-    import torch
-    import torch.nn.functional as F
-    from dtown_torch.learn import networks
-    from dtown_torch.ops import conv3s1
-
-    conv = getattr(net, net.trunk_name).Conv_0
-    w = conv.weight.detach().to(torch.bfloat16).requires_grad_()
-    rows = []
-    for tag, x in frames.items():
-        keep = tag == "train"
-        with torch.set_grad_enabled(keep):
-            y = conv3s1.conv3s1(x, w)
-        with torch.no_grad():
-            xb = networks._images_to_bf16(x)
-            plain_ms, y_r = cuda_ms(
-                lambda: conv3s1.conv3s1_reference(xb, w), 1)
-            # the layer's own call on the card's parent path
-            lib_ms, y_c = cuda_ms(
-                lambda: F.conv2d(xb, w, None, 1, (1, 1)), 3)
-        err = float((y.detach().float() - y_r.float()).abs().max())
-        err_c = float((y.detach().float() - y_c.float()).abs().max())
-        del y, y_r, y_c, xb
-
-        def call():
-            with torch.set_grad_enabled(keep):
-                conv3s1.conv3s1(x, w)
-
-        def window():
-            for _ in range(max(8, (1 << 18) // x.shape[0])):
-                call()
-
-        torch.cuda.synchronize()
-        kname = "conv3s1_kernel"
-        dev_ms, _, _, keys = profile_window(window, [kname], keys=True)
-        how = "trace"
-        if kname not in dev_ms:
-            print(f"conv3s1[{tag}]: the trace's device keys: {keys}")
-            dev_ms[kname] = cuda_ms(call, 20)[0]
-            how = "CUDA events"
-        N, H, W, C = x.shape
-        F_out = w.shape[0]
-        fmas = N * H * W * F_out * 9 * C
-        nbytes = N * (H * W * C + H * W * F_out * 2
-                      + (H * W * C * 2 if keep else 0))
-        b_ms, b_by = bound(nbytes, fmas)
-        print(f"conv3s1[{tag}]: {N} frames {H}x{W}x{C}, kept frames {keep}:"
-              f" {dev_ms[kname]:.5f} ms/launch ({how}; plain "
-              f"{plain_ms:.3f} ms), bound {b_ms:.6f} ms by {b_by} "
-              f"({fmas:.4g} FMA, {nbytes:.4g} bytes); vs plain max |diff| "
-              f"{err:.3g}; cuDNN on the converted frames {lib_ms:.3f} ms, "
-              f"max |diff| {err_c:.3g} on {smi}")
-        if err > 0 or err_c > 0:
-            raise AssertionError(f"conv3s1[{tag}]: kernel differs from its "
-                                 f"plain version or cuDNN's")
-        rows.append(dict(name=f"conv3s1[{tag}]", route="cuda",
-                         source="dtown_torch/csrc/conv3s1.cu",
-                         replaces="dtown/learn/networks.py:101",
-                         launches=launches["conv3s1"], max_abs_err=err,
-                         ms=dev_ms[kname], plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms))
     return rows
 
 

@@ -5,7 +5,8 @@ with a plain C interface, ``build/dtown_torch/<name>-<hash>.so`` at the
 repo root, at first use; the libraries are loaded with ctypes. The hash
 covers the sources and the flags, so an edited source rebuilds. All
 sources can be compiled at once (one nvcc process each) with
-``build_all()``.
+``build_all()``. ``kernel(...)`` binds one entry point of a library and
+is how every kernel of the package is launched.
 
 A failed build raises: there is no fallback to the plain versions.
 """
@@ -16,6 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
+
+from dtown_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -111,3 +116,32 @@ def load(name) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         _loaded[name] = lib
     return lib
+
+
+# ctypes of kernel(...)'s argument codes (struct's letters)
+_CTYPES = {"P": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
+
+
+def kernel(source, symbol, codes, name):
+    """A launcher of the entry ``symbol`` of csrc/<source>.cu, whose
+    arguments are given by ``codes`` ("P" a pointer, "q" a long long, "i"
+    an int) and then a CUDA stream, and which returns a CUDA error code.
+    The launcher takes the entry's arguments and then the device, and
+    passes that device's current stream. It loads the library at its
+    first call, raises RuntimeError on a nonzero return and counts each
+    launch as ``launches.<name>``."""
+    fn = None
+
+    def launch(*args):
+        nonlocal fn
+        if fn is None:
+            fn = getattr(load(source), symbol)
+            fn.argtypes = [_CTYPES[c] for c in codes] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        *args, device = args
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+        profiling.count(f"launches.{name}")
+    return launch

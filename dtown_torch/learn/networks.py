@@ -31,8 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dtown_torch.ops import conv3s1 as _conv3s1
-from dtown_torch.ops import conv8s4 as _conv8s4
+from dtown_torch.ops import frames_conv
 
 BF16 = torch.bfloat16
 # stddev of a standard normal truncated to (-2, 2): lecun_normal's divisor
@@ -84,18 +83,16 @@ class Conv(nn.Module):
     Symmetric SAME padding goes to the convolution itself, so only an
     uneven one costs a padded copy. A trunk's first layer takes the uint8
     frames [B, H, W, C] and converts them (``_images_to_bf16``). On the card
-    a layer of NatureCNN's first shape (8x8 stride 4 on 1 or 3 channels, 32
-    features), which cuDNN runs on its generic engine, runs ops/conv8s4.py's
-    kernel, which converts the frames itself, to the same bits; one of the
-    IMPALA trunk's first shape (3x3 stride 1 on 1 or 3 channels, 16
-    features), on the generic engine too, runs ops/conv3s1.py's, alike."""
+    a layer of a shape in ops/frames_conv.py's table (NatureCNN's and the
+    IMPALA trunk's first, on 1 or 3 channels), which cuDNN runs on its
+    generic engine, runs that shape's kernel (``kernel``), which converts
+    the frames itself, to the same bits."""
 
     def __init__(self, c_in, features, k, stride=1, device=None,
                  generator=None):
         super().__init__()
         self.k, self.stride = k, stride
-        self.direct = _conv8s4.fits(c_in, features, k, stride)
-        self.direct3 = _conv3s1.fits(c_in, features, k, stride)
+        self.kernel = frames_conv.kernel_for(c_in, features, k, stride)
         self.weight = nn.Parameter(torch.empty(features, c_in, k, k,
                                                device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -104,16 +101,14 @@ class Conv(nn.Module):
 
     def forward(self, x):
         w = self.weight.to(BF16)
-        if x.dtype == torch.uint8 and self.direct and x.is_cuda:
-            y = _conv8s4.conv8s4(x, w, _same_pads(x.permute(0, 3, 1, 2),
-                                                  self.k, self.stride))
-        elif x.dtype == torch.uint8 and self.direct3 and x.is_cuda:
-            y = _conv3s1.conv3s1(x, w)
+        frames = x.dtype == torch.uint8
+        left, right, top, bottom = pads = _same_pads(
+            x.permute(0, 3, 1, 2) if frames else x, self.k, self.stride)
+        if frames and self.kernel and x.is_cuda:
+            y = frames_conv.frames_conv(x, w, self.stride, pads)
         else:
-            if x.dtype == torch.uint8:
+            if frames:
                 x = _images_to_bf16(x)
-            left, right, top, bottom = pads = _same_pads(x, self.k,
-                                                         self.stride)
             if left == right and top == bottom:
                 y = F.conv2d(x, w, None, self.stride, (top, left))
             else:

@@ -25,15 +25,13 @@ the episode, and the reset draws a fresh goal on the env's own map.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
+from dtown_torch import _build
 from dtown_torch import constants as C
 from dtown_torch import types as T
 from dtown_torch.geometry import div, fma32, sincos
-from dtown_torch.utils import profiling
 
 # ---- blob field indices (f32 [F, B]) ---------------------------------
 F_POS_X, F_POS_Y, F_POS_Z, F_ANGLE, F_SPEED = 0, 1, 2, 3, 4
@@ -984,16 +982,8 @@ def state_step_reference(blob, act0, act1, dev):
     return out
 
 
-def _lib():
-    from dtown_torch import _build
-
-    lib = _build.load("state_kernel")
-    fn = lib.dtown_state_step
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14
-                       + [ctypes.c_int] * 20 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_state_step = _build.kernel("state_kernel", "dtown_state_step",
+                           "P" * 14 + "i" * 20, "state_step")
 
 
 def state_step(blob, actions, dev):
@@ -1021,23 +1011,17 @@ def state_step(blob, actions, dev):
     blob = blob.contiguous()
     actions = actions.contiguous()
     out = torch.empty_like(blob)
-    fn = _lib()
-    stream = torch.cuda.current_stream(blob.device).cuda_stream
-    err = fn(blob.data_ptr(), actions.data_ptr(), out.data_ptr(),
-             dev["words"].data_ptr(), dev["ct_t"].data_ptr(),
-             dev["ot"].data_ptr(), dev["bank"].data_ptr(),
-             dev["prm"].data_ptr(), dev["npc"].data_ptr(),
-             dev["colmap"].data_ptr(), dev["drp"].data_ptr(),
-             dev["n_ok_v"].data_ptr(), dev["n_driv"].data_ptr(),
-             dev["goal"].data_ptr(),
-             B, nf, dev["n_tiles"], dev["Hg"], dev["Wg"],
-             dev["M"], dev["frame_skip"],
-             int(dev["use_wm"]), int(dev["auto_reset"]), dev["n_npc"],
-             int(dev["domain_rand"]), dev["n_opt"], dev["n_maps"],
-             dev["t_pad"], dev["npw"], int(dev["nav"]), dev["goal_k"],
-             G, E, smem, stream)
-    if err != 0:
-        raise RuntimeError(f"state_step kernel launch failed: CUDA error "
-                           f"{err}")
-    profiling.count("launches.state_step")
+    _state_step(blob.data_ptr(), actions.data_ptr(), out.data_ptr(),
+                dev["words"].data_ptr(), dev["ct_t"].data_ptr(),
+                dev["ot"].data_ptr(), dev["bank"].data_ptr(),
+                dev["prm"].data_ptr(), dev["npc"].data_ptr(),
+                dev["colmap"].data_ptr(), dev["drp"].data_ptr(),
+                dev["n_ok_v"].data_ptr(), dev["n_driv"].data_ptr(),
+                dev["goal"].data_ptr(),
+                B, nf, dev["n_tiles"], dev["Hg"], dev["Wg"],
+                dev["M"], dev["frame_skip"],
+                int(dev["use_wm"]), int(dev["auto_reset"]), dev["n_npc"],
+                int(dev["domain_rand"]), dev["n_opt"], dev["n_maps"],
+                dev["t_pad"], dev["npw"], int(dev["nav"]), dev["goal_k"],
+                G, E, smem, blob.device)
     return out

@@ -14,13 +14,12 @@ times both types on the card at the reference probe's shape
 """
 from __future__ import annotations
 
-import ctypes
 import sys
 import time
 
 import torch
 
-from dtown_torch.utils import profiling
+from dtown_torch import _build
 
 SHAPE = (4096, 32, 128)   # the reference probe's grid x (S, L) block
 OPS = 256
@@ -38,15 +37,8 @@ def fma_chain_reference(x, dtype, ops=OPS):
     return a.to(torch.float32)
 
 
-def _fn():
-    from dtown_torch import _build
-
-    fn = _build.load("fma_probe").dtown_fma_chain
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_fma_chain = _build.kernel("fma_probe", "dtown_fma_chain", "PPqii",
+                          "fma_chain")
 
 
 def fma_chain(x, dtype, ops=OPS):
@@ -64,12 +56,8 @@ def fma_chain(x, dtype, ops=OPS):
         raise ValueError(f"unsupported device {x.device}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    err = _fn()(x.data_ptr(), out.data_ptr(), x.numel(), ops,
-                int(dtype == torch.bfloat16),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fma_chain kernel launch failed: CUDA error {err}")
-    profiling.count("launches.fma_chain")
+    _fma_chain(x.data_ptr(), out.data_ptr(), x.numel(), ops,
+               int(dtype == torch.bfloat16), x.device)
     return out
 
 

@@ -44,12 +44,12 @@ moving NPCs' view half-plane cull is kept in both.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
 import torch
 
+from dtown_torch import _build
 from dtown_torch import constants as Cc
 from dtown_torch import types as T
 from dtown_torch.geometry import sincos
@@ -65,7 +65,6 @@ from dtown_torch.render.tile_shading import (
     INTERSECTION_KINDS, _noise_h16f, _select_word, _shade_pixels,
     _tile_masks,
 )
-from dtown_torch.utils import profiling
 
 LANE_N = 128  # pixel lane width of the [S, 128] frame layout
 
@@ -1163,16 +1162,8 @@ def compact(blob, pk):
     return lists
 
 
-def _lib():
-    from dtown_torch import _build
-
-    lib = _build.load("blob_render")
-    fn = lib.dtown_blob_render
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 19
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_blob_render = _build.kernel("blob_render", "dtown_blob_render",
+                            "P" * 9 + "i" * 19, "blob_render")
 
 
 def render_frames_from_blob(blob, pk):
@@ -1199,19 +1190,13 @@ def render_frames_from_blob(blob, pk):
     H, W = pk["H"], pk["W"]
     out = torch.empty((B, pk["C"], H * W // LANE_N, LANE_N),
                       dtype=torch.uint8, device=blob.device)
-    fn = _lib()
-    stream = torch.cuda.current_stream(blob.device).cuda_stream
-    err = fn(blob.data_ptr(), pk["rays"].data_ptr(), pk["words"].data_ptr(),
-             pk["scene"].data_ptr(), pk["of"].data_ptr(),
-             pk["oi"].data_ptr(), pk["pf"].data_ptr(), pk["pi"].data_ptr(),
-             out.data_ptr(),
-             B, H, W, pk["words"].shape[0], pk["Hg"], pk["Wg"],
-             pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
-             int(pk["no_clamp"]), LAMP_GREEN, LAMP_RED, int(pk["dr"]),
-             int(pk["gray"]), int(pk["n_npc"] > 0), pk["drb"],
-             pk["n_maps"], pk["npw"], int(pk["tri"]), stream)
-    if err != 0:
-        raise RuntimeError(f"blob render kernel launch failed: CUDA error "
-                           f"{err}")
-    profiling.count("launches.blob_render")
+    _blob_render(blob.data_ptr(), pk["rays"].data_ptr(),
+                 pk["words"].data_ptr(), pk["scene"].data_ptr(),
+                 pk["of"].data_ptr(), pk["oi"].data_ptr(),
+                 pk["pf"].data_ptr(), pk["pi"].data_ptr(), out.data_ptr(),
+                 B, H, W, pk["words"].shape[0], pk["Hg"], pk["Wg"],
+                 pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
+                 int(pk["no_clamp"]), LAMP_GREEN, LAMP_RED, int(pk["dr"]),
+                 int(pk["gray"]), int(pk["n_npc"] > 0), pk["drb"],
+                 pk["n_maps"], pk["npw"], int(pk["tri"]), blob.device)
     return out

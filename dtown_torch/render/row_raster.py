@@ -39,12 +39,12 @@ bounds, and nothing on the main path calls them.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
 import torch
 
+from dtown_torch import _build
 from dtown_torch import types as T
 from dtown_torch.geometry import get_dir_vec, get_right_vec, norm3, sincos
 from dtown_torch.objects import render_angles
@@ -52,7 +52,6 @@ from dtown_torch.render import lod as lodlib
 from dtown_torch.render import meshes as meshlib
 from dtown_torch.render.distortion import undistorted_ndc
 from dtown_torch.render.tile_shading import INTERSECTION_KINDS, _shade_pixels
-from dtown_torch.utils import profiling
 
 LANE_N = 128  # pixel lane width of the [S, 128] frame layout
 
@@ -641,15 +640,10 @@ def row_sphere_pass(rows, pk):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _fn(name, n_ptr, n_int):
-    from dtown_torch import _build
-
-    fn = getattr(_build.load("row_render"), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_row_render_static = _build.kernel("row_render", "dtown_row_render_static",
+                                  "P" * 9 + "i" * 9, "row_render_static")
+_row_render = _build.kernel("row_render", "dtown_row_render",
+                           "P" * 6 + "i" * 9, "row_render")
 
 
 def _check_rows(cam, words, pk, **rows):
@@ -686,16 +680,12 @@ def row_render_static(cam, words, flags, pk):
     out = torch.empty((B, 3, pk["H"] * pk["W"] // LANE_N, LANE_N),
                       dtype=torch.uint8, device=cam.device)
     cam, words, flags = (t.contiguous() for t in (cam, words, flags))
-    fn = _fn("dtown_row_render_static", 9, 9)
-    err = fn(cam.data_ptr(), words.data_ptr(), pk["ndc"].data_ptr(),
-             flags.data_ptr(), pk["sof"].data_ptr(), pk["soi"].data_ptr(),
-             pk["spf"].data_ptr(), pk["spi"].data_ptr(), out.data_ptr(),
-             B, *_dims(pk), pk["n_objs"], int(pk["aa"]), int(pk["any_x"]),
-             torch.cuda.current_stream(cam.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"row_render_static kernel launch failed: CUDA "
-                           f"error {err}")
-    profiling.count("launches.row_render_static")
+    _row_render_static(cam.data_ptr(), words.data_ptr(),
+                       pk["ndc"].data_ptr(), flags.data_ptr(),
+                       pk["sof"].data_ptr(), pk["soi"].data_ptr(),
+                       pk["spf"].data_ptr(), pk["spi"].data_ptr(),
+                       out.data_ptr(), B, *_dims(pk), pk["n_objs"],
+                       int(pk["aa"]), int(pk["any_x"]), cam.device)
     return out
 
 
@@ -713,15 +703,10 @@ def row_render(cam, words, obj, prim, pk):
     out = torch.empty((B, 3, pk["H"] * pk["W"] // LANE_N, LANE_N),
                       dtype=torch.uint8, device=cam.device)
     cam, words, obj, prim = (t.contiguous() for t in (cam, words, obj, prim))
-    fn = _fn("dtown_row_render", 6, 9)
-    err = fn(cam.data_ptr(), words.data_ptr(), pk["ndc"].data_ptr(),
-             obj.data_ptr(), prim.data_ptr(), out.data_ptr(),
-             B, *_dims(pk), Kvis, int(pk["aa"]), int(pk["any_x"]),
-             torch.cuda.current_stream(cam.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"row_render kernel launch failed: CUDA error "
-                           f"{err}")
-    profiling.count("launches.row_render")
+    _row_render(cam.data_ptr(), words.data_ptr(), pk["ndc"].data_ptr(),
+                obj.data_ptr(), prim.data_ptr(), out.data_ptr(),
+                B, *_dims(pk), Kvis, int(pk["aa"]), int(pk["any_x"]),
+                cam.device)
     return out
 
 

@@ -15,7 +15,7 @@ from dtown.learn import networks as jnet
 
 from dtown_torch.convert import params_from_flax
 from dtown_torch.learn import networks as tnet
-from dtown_torch.ops import conv3s1, conv8s4
+from dtown_torch.ops import frames_conv
 from dtown_torch.utils import profiling
 
 # Outputs agree within two bf16 ulps (2^-7) of the output's scale: both
@@ -193,33 +193,41 @@ def _frames(hw, c, layout, seed=0):
                          dtype=torch.uint8).permute(0, 2, 3, 1)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
-@pytest.mark.parametrize("hw", [(64, 64), (96, 96), (32, 32), (84, 84),
-                                (31, 31), (48, 64)])
-@pytest.mark.parametrize("c", [3, 1])
-def test_conv8s4_reference_matches_conv2d(dtype, hw, c):
-    """ops/conv8s4.py's plain version (the card kernel's order: each
+# the table's kernels by name: (window, stride, features)
+SHAPES = {name: shape for shape, name in frames_conv.KERNELS.items()}
+
+
+@pytest.mark.parametrize("name,dtype,hw,c", [
+    ("conv8s4", dtype, hw, c) for dtype in (torch.float64, torch.bfloat16)
+    for hw in [(64, 64), (96, 96), (32, 32), (84, 84), (31, 31), (48, 64)]
+    for c in (3, 1)] + [
+    ("conv3s1", torch.float64, hw, c)
+    for hw in [(64, 64), (32, 32), (31, 47)] for c in (3, 1)])
+def test_frames_conv_reference_matches_conv2d(name, dtype, hw, c):
+    """ops/frames_conv.py's plain version (the card kernels' order: each
     output summed from 0 over window row, window column, channel) computes
-    F.conv2d of NatureCNN's first layer (8x8 stride 4 on 3 or 1 channels,
-    XLA's SAME padding) on the images / 255. In float64: the output and
-    the weight and bias gradients to 1e-12 of their scale (only the order
-    of the sum differs). In bf16 (f32 sums, rounded once): the output
-    within one bf16 ulp of its scale."""
+    F.conv2d of each kernel's layer (NatureCNN's first, 8x8 stride 4, and
+    the IMPALA trunk's first, 3x3 stride 1, on 3 or 1 channels, XLA's SAME
+    padding) on the images / 255. In float64: the output and the weight
+    and bias gradients to 1e-12 of their scale (only the order of the sum
+    differs). In bf16 (f32 sums, rounded once): the output within one bf16
+    ulp of its scale."""
+    k, s, f = SHAPES[name]
     x = _frames(hw, c, "planes" if c == 3 else "nhwc").permute(0, 3, 1, 2)
     x = x.to(dtype) / torch.full((), 255.0, dtype=dtype)
-    conv = tnet.Conv(c, 32, 8, 4, generator=torch.Generator().manual_seed(1))
-    assert conv.direct
-    pads = tnet._same_pads(x, 8, 4)
+    conv = tnet.Conv(c, f, k, s, generator=torch.Generator().manual_seed(1))
+    assert conv.kernel == name
+    pads = tnet._same_pads(x, k, s)
     leaves = [conv.weight.detach().to(dtype), torch.randn(
-        32, generator=torch.Generator().manual_seed(2)).to(dtype)]
+        f, generator=torch.Generator().manual_seed(2)).to(dtype)]
     got_leaves = [v.clone().requires_grad_() for v in leaves]
     want_leaves = [v.clone().requires_grad_() for v in leaves]
-    got = conv8s4.conv8s4_reference(x, got_leaves[0], pads) \
+    got = frames_conv.frames_conv_reference(x, got_leaves[0], s, pads) \
         + got_leaves[1][:, None, None]
-    want = F.conv2d(F.pad(x, pads), want_leaves[0], None, 4) \
+    want = F.conv2d(F.pad(x, pads), want_leaves[0], None, s) \
         + want_leaves[1][:, None, None]
-    assert got.shape == want.shape == (4, 32, -(-hw[0] // 4),
-                                       -(-hw[1] // 4))
+    assert got.shape == want.shape == (4, f, -(-hw[0] // s),
+                                       -(-hw[1] // s))
     assert got.dtype == dtype
     if dtype == torch.float64:
         dy = torch.randn(want.shape, generator=torch.Generator()
@@ -239,25 +247,68 @@ def test_conv8s4_reference_matches_conv2d(dtype, hw, c):
                                atol=ulp)
 
 
-@pytest.mark.parametrize("trunk,kind,direct", [
-    ("nature", "rgb", [True, False, False]),
-    ("nature", "gray", [True, False, False]),
-    ("impala", "rgb", [False] * 15), ("nature", "state", [])])
-def test_conv8s4_engages_by_shape(trunk, kind, direct):
-    """The kernel's shape (8x8 stride 4, 1 or 3 channels, 32 features) is
-    NatureCNN's Conv_0 alone: not Conv_1 / Conv_2, no IMPALA conv (3x3
-    stride 1), nothing of a state trunk. The parameters keep flax's names
-    and shapes, so params_from_flax loads a flax tree as before; on the
-    CPU the layer stays F.conv2d and launches nothing, and the kernel's
-    wrapper refuses CPU tensors."""
+@pytest.mark.parametrize("name", list(SHAPES))
+@pytest.mark.parametrize("c", [3, 1])
+def test_frames_conv_reference_sums_in_kernel_order(name, c):
+    """The plain version in bf16 is, bit for bit, the kernels' sum: per
+    output a float32 chain from 0 over window row, window column, channel,
+    rounded once to bf16 (a scalar loop here), SAME padding even or not.
+    Where every partial sum is exact in float32 (small multiples of powers
+    of two), it equals F.conv2d exactly, in float32 and rounded to bf16."""
+    k, s, f = SHAPES[name]
+    g = torch.Generator().manual_seed(4)
+    u = torch.randint(0, 256, (2, c, 5, 6), generator=g, dtype=torch.uint8)
+    x = u.to(tnet.BF16) / torch.full((), 255.0, dtype=tnet.BF16)
+    w = torch.randn((f, c, k, k), generator=g).to(tnet.BF16)
+    pads = tnet._same_pads(x, k, s)
+    got = frames_conv.frames_conv_reference(x, w, s, pads)
+    assert got.dtype == tnet.BF16
+    left, right, top, bottom = pads
+    xp = np.pad(x.float().numpy(),
+                ((0, 0), (0, 0), (top, bottom), (left, right)))
+    wn = w.float().numpy()
+    want = np.zeros((2, f, -(-5 // s), -(-6 // s)), np.float32)
+    for b, o, i, j in np.ndindex(*want.shape):
+        acc = np.float32(0)
+        for r in range(k):
+            for t in range(k):
+                for ch in range(c):
+                    acc = np.float32(acc + xp[b, ch, s * i + r, s * j + t]
+                                     * wn[o, ch, r, t])
+        want[b, o, i, j] = acc
+    assert torch.equal(got, torch.from_numpy(want).to(tnet.BF16))
+
+    xe = torch.randint(0, 9, (2, c, 7, 5), generator=g).float() / 8
+    we = torch.randint(-8, 9, (f, c, k, k), generator=g).float() / 4
+    pads = tnet._same_pads(xe, k, s)
+    exact = F.conv2d(F.pad(xe, pads), we, None, s)
+    assert torch.equal(frames_conv.frames_conv_reference(xe, we, s, pads),
+                       exact)
+    assert torch.equal(frames_conv.frames_conv_reference(
+        xe.to(tnet.BF16), we.to(tnet.BF16), s, pads), exact.to(tnet.BF16))
+
+
+@pytest.mark.parametrize("trunk", ["nature", "impala"])
+@pytest.mark.parametrize("kind", ["rgb", "gray", "state"])
+def test_frames_conv_engages_by_shape(trunk, kind):
+    """The table's shapes are each trunk's Conv_0 alone: NatureCNN's (8x8
+    stride 4, 1 or 3 channels, 32 features) takes conv8s4 and the IMPALA
+    trunk's (3x3 stride 1, 16 features) conv3s1; no other convolution
+    (NatureCNN's Conv_2 is 3x3 stride 1 on 64 channels, IMPALA's other 14
+    take 16 or 32), nothing of a state trunk. The parameters keep flax's
+    names and shapes, so params_from_flax loads a flax tree as before; on
+    the CPU the layer stays F.conv2d and launches nothing."""
     obs = _obs(kind, 64)
     params = jnet.ActorCritic(trunk=trunk).init(jax.random.PRNGKey(0),
                                                 jnp.asarray(obs))
     port = params_from_flax(_np(params), tnet.ActorCritic(obs.shape[1:],
                                                           trunk=trunk))
     t = getattr(port, port.trunk_name)
-    convs = [m for m in t.modules() if isinstance(m, tnet.Conv)]
-    assert [m.direct for m in convs] == direct
+    want = [] if kind == "state" else {
+        "nature": ["conv8s4", None, None],
+        "impala": ["conv3s1"] + [None] * 14}[trunk]
+    assert [m.kernel for m in t.modules() if isinstance(m, tnet.Conv)] \
+        == want
     if trunk == "nature" and kind != "state":
         assert {k: tuple(v.shape) for k, v in t.state_dict().items()} == {
             "Conv_0.weight": (32, obs.shape[-1], 8, 8), "Conv_0.bias": (32,),
@@ -267,113 +318,34 @@ def test_conv8s4_engages_by_shape(trunk, kind, direct):
     profiling.reset_counters()
     with torch.no_grad():
         port(torch.from_numpy(obs))
-    assert "launches.conv8s4" not in profiling.counters()
-    if direct and direct[0]:
-        frames = torch.from_numpy(obs)
-        w = t.Conv_0.weight.detach().to(tnet.BF16)
-        pads = tnet._same_pads(frames.permute(0, 3, 1, 2), 8, 4)
-        with pytest.raises(ValueError, match="runs on the card"):
-            conv8s4.conv8s4(frames, w, pads)
+    assert not [k for k in profiling.counters() if k.startswith("launches.")]
 
 
-@pytest.mark.parametrize("hw", [(64, 64), (32, 32), (31, 47)])
-@pytest.mark.parametrize("c", [3, 1])
-def test_conv3s1_reference_matches_conv2d(hw, c):
-    """ops/conv3s1.py's plain version (the card kernel's order) computes
-    F.conv2d of the IMPALA trunk's first layer (3x3 stride 1 on 3 or 1
-    channels, SAME padding) on the images / 255: in float64 the output and
-    the weight and bias gradients to 1e-12 of their scale (only the order
-    of the sum differs)."""
-    x = _frames(hw, c, "planes" if c == 3 else "nhwc").permute(0, 3, 1, 2)
-    x = x.double() / torch.full((), 255.0, dtype=torch.float64)
-    conv = tnet.Conv(c, 16, 3, 1, generator=torch.Generator().manual_seed(1))
-    assert conv.direct3 and not conv.direct
-    assert tnet._same_pads(x, 3, 1) == [conv3s1.PAD] * 4
-    leaves = [conv.weight.detach().double(), torch.randn(
-        16, generator=torch.Generator().manual_seed(2)).double()]
-    got_leaves = [v.clone().requires_grad_() for v in leaves]
-    want_leaves = [v.clone().requires_grad_() for v in leaves]
-    got = conv3s1.conv3s1_reference(x, got_leaves[0]) \
-        + got_leaves[1][:, None, None]
-    want = F.conv2d(x, want_leaves[0], None, 1, 1) \
-        + want_leaves[1][:, None, None]
-    assert got.shape == want.shape == (4, 16) + hw
-    assert got.dtype == torch.float64
-    dy = torch.randn(want.shape, generator=torch.Generator().manual_seed(3),
-                     dtype=torch.float64)
-    got.backward(dy)
-    want.backward(dy)
-    pairs = [(got, want)] + [(a.grad, b.grad) for a, b in
-                             zip(got_leaves, want_leaves)]
-    for a, b in pairs:
-        a, b = a.detach().numpy(), b.detach().numpy()
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * np.abs(b).max())
-
-
-@pytest.mark.parametrize("c", [3, 1])
-def test_conv3s1_reference_sums_in_kernel_order(c):
-    """The plain version in bf16 is, bit for bit, the kernel's sum: per
-    output a float32 chain from 0 over window row, window column, channel,
-    rounded once to bf16 (a scalar loop here). Where every partial sum is
-    exact in float32 (small multiples of powers of two), it equals
-    F.conv2d exactly, in float32 and rounded to bf16."""
-    g = torch.Generator().manual_seed(4)
-    u = torch.randint(0, 256, (2, c, 5, 6), generator=g, dtype=torch.uint8)
-    x = u.to(tnet.BF16) / torch.full((), 255.0, dtype=tnet.BF16)
-    w = torch.randn((16, c, 3, 3), generator=g).to(tnet.BF16)
-    got = conv3s1.conv3s1_reference(x, w)
-    assert got.dtype == tnet.BF16
-    xp = np.pad(x.float().numpy(), ((0, 0), (0, 0), (1, 1), (1, 1)))
-    wn = w.float().numpy()
-    want = np.zeros((2, 16, 5, 6), np.float32)
-    for b, o, i, j in np.ndindex(*want.shape):
-        acc = np.float32(0)
-        for r in range(3):
-            for s in range(3):
-                for ch in range(c):
-                    acc = np.float32(acc + xp[b, ch, i + r, j + s]
-                                     * wn[o, ch, r, s])
-        want[b, o, i, j] = acc
-    assert torch.equal(got, torch.from_numpy(want).to(tnet.BF16))
-
-    xe = torch.randint(0, 9, (2, c, 7, 5), generator=g).float() / 8
-    we = torch.randint(-8, 9, (16, c, 3, 3), generator=g).float() / 4
-    exact = F.conv2d(xe, we, None, 1, 1)
-    assert torch.equal(conv3s1.conv3s1_reference(xe, we), exact)
-    assert torch.equal(conv3s1.conv3s1_reference(xe.to(tnet.BF16),
-                                                 we.to(tnet.BF16)),
-                       exact.to(tnet.BF16))
-
-
-@pytest.mark.parametrize("trunk,kind,direct3", [
-    ("impala", "rgb", [True] + [False] * 14),
-    ("impala", "gray", [True] + [False] * 14),
-    ("nature", "rgb", [False] * 3), ("nature", "gray", [False] * 3),
-    ("impala", "state", [])])
-def test_conv3s1_engages_by_shape(trunk, kind, direct3):
-    """The kernel's shape (3x3 stride 1, 1 or 3 channels, 16 features) is
-    the IMPALA trunk's Conv_0 alone: none of its other 14 convolutions (16
-    or 32 channels in), no NatureCNN layer (its Conv_2 is 3x3 stride 1 on
-    64 channels), nothing of a state trunk. On the CPU the layer stays
-    F.conv2d and launches nothing; the kernel's wrapper refuses CPU
-    tensors and other dtypes."""
-    obs = torch.from_numpy(_obs(kind, 32))
-    net = tnet.ActorCritic(tuple(obs.shape[1:]), trunk=trunk,
-                           generator=torch.Generator().manual_seed(0))
-    t = getattr(net, net.trunk_name)
-    convs = [m for m in t.modules() if isinstance(m, tnet.Conv)]
-    assert [m.direct3 for m in convs] == direct3
-    assert not any(m.direct and m.direct3 for m in convs)
+@pytest.mark.parametrize("name", list(SHAPES))
+@pytest.mark.parametrize("what", ["device", "dtype", "shape"])
+def test_frames_conv_refuses(name, what):
+    """The kernels' entry refuses, before anything is launched, CPU
+    tensors, frames other than uint8 or a weight other than bf16, and every
+    shape the table does not hold: a weight whose channels are not the
+    frames', frames of 2 channels or not [B, H, W, C], a non-square
+    window, another kernel's window, other features, another stride."""
+    k, s, f = SHAPES[name]
+    frames = torch.from_numpy(_obs("rgb", 32))
+    w = torch.zeros((f, 3, k, k), dtype=tnet.BF16)
+    pads = tnet._same_pads(frames.permute(0, 3, 1, 2), k, s)
+    other = next(shape for shape in frames_conv.KERNELS if shape[2] != f)
+    calls = {
+        "device": [(frames, w, s)],
+        "dtype": [(frames.float(), w, s), (frames, w.float(), s)],
+        "shape": [(frames, w[:, :1], s), (frames[..., :2], w[:, :2], s),
+                  (frames[0], w, s), (frames, w[..., 1:], s),
+                  (frames, torch.zeros((f, 3) + other[:1] * 2,
+                                       dtype=tnet.BF16), s),
+                  (frames, w[:f // 2], s), (frames, w, s + 1)]}[what]
+    match = {"device": "runs on the card", "dtype": "takes uint8 frames",
+             "shape": "got the shapes"}[what]
     profiling.reset_counters()
-    with torch.no_grad():
-        net(obs)
-    assert "launches.conv3s1" not in profiling.counters()
-    if direct3 and direct3[0]:
-        w = t.Conv_0.weight.detach().to(tnet.BF16)
-        with pytest.raises(ValueError, match="runs on the card"):
-            conv3s1.conv3s1(obs, w)
-        with pytest.raises(ValueError, match="takes uint8 frames"):
-            conv3s1.conv3s1(obs.float(), w)
-        with pytest.raises(ValueError, match="takes uint8 frames"):
-            conv3s1.conv3s1(obs, w.float())
-        assert "launches.conv3s1" not in profiling.counters()
+    for images, weight, stride in calls:
+        with pytest.raises(ValueError, match=match):
+            frames_conv.frames_conv(images, weight, stride, pads)
+    assert not [k for k in profiling.counters() if k.startswith("launches.")]
